@@ -1,0 +1,101 @@
+"""Trowbridge-Reitz (GGX) microfacet functions on (R,) components.
+
+Counterpart of ``tpu_pathtracer/render/microfacet.py`` (the parts the
+ported materials use: D, Lambda, G1, G2, the VNDF and its pdf, reflect).
+Directions are V3 in a local shading frame with +Z the normal.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..utils.vec import V2, V3, cross3, dot3, normalize3, sel
+
+
+def _cos2_theta(w: V3):
+    return w.z * w.z
+
+
+def _tan2_theta(w: V3):
+    c2 = _cos2_theta(w)
+    return torch.where(c2 > 0.0, (1.0 - c2) / torch.clamp(c2, min=1e-20),
+                       float("inf"))
+
+
+def _cos_sin_phi(w: V3):
+    sin_t = torch.sqrt(torch.clamp(1.0 - _cos2_theta(w), min=0.0))
+    safe = sin_t > 0.0
+    inv = 1.0 / torch.clamp(sin_t, min=1e-20)
+    cp = torch.where(safe, torch.clamp(w.x * inv, -1, 1), 1.0)
+    sp = torch.where(safe, torch.clamp(w.y * inv, -1, 1), 0.0)
+    return cp, sp
+
+
+def distribution_d(wm: V3, ax, ay):
+    """Trowbridge-Reitz D(wm)."""
+    t2 = _tan2_theta(wm)
+    c4 = _cos2_theta(wm) ** 2
+    cp, sp = _cos_sin_phi(wm)
+    e = t2 * (cp * cp / torch.clamp(ax * ax, min=1e-12)
+              + sp * sp / torch.clamp(ay * ay, min=1e-12))
+    d = 1.0 / (math.pi * ax * ay * torch.clamp(c4, min=1e-20) * (1.0 + e) ** 2)
+    return torch.where(torch.isfinite(t2) & (c4 > 0), d, 0.0)
+
+
+def lambda_(w: V3, ax, ay):
+    """Smith Lambda."""
+    t2 = _tan2_theta(w)
+    cp, sp = _cos_sin_phi(w)
+    a2 = (cp * ax) ** 2 + (sp * ay) ** 2
+    lam = (torch.sqrt(1.0 + a2 * t2) - 1.0) / 2.0
+    return torch.where(torch.isfinite(t2), lam, 0.0)
+
+
+def g1(w: V3, ax, ay):
+    return 1.0 / (1.0 + lambda_(w, ax, ay))
+
+
+def g2(wo: V3, wi: V3, ax, ay):
+    """Bidirectional masking-shadowing."""
+    return 1.0 / (1.0 + lambda_(wo, ax, ay) + lambda_(wi, ax, ay))
+
+
+def vndf_pdf(w: V3, wm: V3, ax, ay):
+    """Visible normal distribution D_w(wm)."""
+    cos_w = torch.abs(w.z)
+    d = g1(w, ax, ay) / torch.clamp(cos_w, min=1e-20) * distribution_d(wm, ax, ay) \
+        * torch.abs(dot3(w, wm))
+    return torch.where(cos_w > 0.0, d, 0.0)
+
+
+def sample_vndf(w: V3, u: V2, ax, ay) -> V3:
+    """Sample the visible normal distribution (Heitz's ellipsoid warp)."""
+    wh = normalize3(V3(ax * w.x, ay * w.y, w.z))
+    wh = sel(wh.z < 0.0, -wh, wh)
+
+    zero = torch.zeros_like(wh.z)
+    up_cross = V3(-wh.y, wh.x, zero)
+    t1 = sel(wh.z < 0.99999, normalize3(up_cross),
+             V3(torch.ones_like(wh.z), zero, zero))
+    t2 = cross3(wh, t1)
+
+    r = torch.sqrt(u.x)
+    phi = 2.0 * math.pi * u.y
+    px = r * torch.cos(phi)
+    py = r * torch.sin(phi)
+    h = torch.sqrt(torch.clamp(1.0 - px * px, min=0.0))
+    lerp_f = (1.0 + wh.z) / 2.0
+    py = h * (1.0 - lerp_f) + py * lerp_f
+    pz = torch.sqrt(torch.clamp(1.0 - px * px - py * py, min=0.0))
+    nh = t1 * px + t2 * py + wh * pz
+    return normalize3(V3(ax * nh.x, ay * nh.y, torch.clamp(nh.z, min=1e-6)))
+
+
+def reflect(wo: V3, n: V3) -> V3:
+    """Mirror wo about n."""
+    return n * (2.0 * dot3(wo, n)) - wo
+
+
+def same_hemisphere(a: V3, b: V3):
+    return a.z * b.z > 0.0

@@ -1,0 +1,126 @@
+"""RGB -> spectrum sigmoid-polynomial tables: loading and batched lookup.
+
+Counterpart of the evaluation side of ``tpu_pathtracer/spectrum/rgb2spec.py``.
+The port has no fitter: it reads the tables committed with the JAX
+package (data, not code) by file path, and raises if one is missing.
+
+A spectrum is reconstructed as
+  s(lambda) = sigmoid(c0*t^2 + c1*t + c2),  t = (lambda-360)/470.
+"""
+from __future__ import annotations
+
+import os
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..utils.math import select_lane
+from ..utils.vec import S4
+from .grid import LAMBDA_MAX, LAMBDA_MIN
+
+DEFAULT_RES = 64
+
+# the committed (3, res, res, res, 3) coefficient tables, one file per
+# gamut and resolution
+TABLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                         "..", "tpu_pathtracer", "data", "rgb2spec")
+
+
+@lru_cache(maxsize=None)
+def get_table(gamut_name: str, res: int = DEFAULT_RES):
+    """(z_nodes (res,), coeffs (3, res, res, res, 3)) float32 numpy arrays,
+    read-only.  Raises FileNotFoundError for a table that is not committed."""
+    path = os.path.join(TABLE_DIR, f"{gamut_name}_{res}_v2.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no rgb2spec table {path}; the port loads committed tables "
+            "only and has no fitter")
+    with np.load(path) as data:
+        zn, coeffs = data["z_nodes"], data["coeffs"]
+    zn.setflags(write=False)
+    coeffs.setflags(write=False)
+    return zn, coeffs
+
+
+def lookup_coeffs(rgb, zn, coeffs):
+    """Trilinear coefficient lookup.
+
+    rgb: (..., 3) LINEAR rgb (clamped to [0, 1]); zn: (res,) tensor;
+    coeffs: (3, res, res, res, 3) tensor.  Returns (..., 3)."""
+    res = zn.shape[0]
+    rgb = rgb.clamp(0.0, 1.0)
+
+    maxc = torch.argmax(rgb, dim=-1)
+    z = rgb.amax(dim=-1)
+    c1 = select_lane(rgb, (maxc + 1) % 3)
+    c2 = select_lane(rgb, (maxc + 2) % 3)
+    zsafe = torch.clamp(z, min=1e-8)
+    x = c1 * (res - 1.0) / zsafe
+    y = c2 * (res - 1.0) / zsafe
+
+    xi = x.to(torch.int64).clamp(0, res - 2)
+    yi = y.to(torch.int64).clamp(0, res - 2)
+    # first zi with zn[zi+1] > z
+    zi = ((zn <= z[..., None]).sum(dim=-1) - 1).clamp(0, res - 2)
+    dx = x - xi
+    dy = y - yi
+    zn_lo = zn[zi]
+    zn_hi = zn[zi + 1]
+    dz = (z - zn_lo) / torch.clamp(zn_hi - zn_lo, min=1e-12)
+
+    cflat = coeffs.reshape(-1, coeffs.shape[-1])
+
+    def gather(ddx, ddy, ddz):
+        flat = ((maxc * res + (zi + ddz)) * res + (yi + ddy)) * res + (xi + ddx)
+        return cflat[flat]
+
+    def lerp(a, b, t):
+        return a + (b - a) * t[..., None]
+
+    c = lerp(
+        lerp(lerp(gather(0, 0, 0), gather(1, 0, 0), dx),
+             lerp(gather(0, 1, 0), gather(1, 1, 0), dx), dy),
+        lerp(lerp(gather(0, 0, 1), gather(1, 0, 1), dx),
+             lerp(gather(0, 1, 1), gather(1, 1, 1), dx), dy),
+        dz)
+
+    # uniform rgb -> constant spectrum sigmoid^-1(v)
+    uniform = (rgb[..., 0] == rgb[..., 1]) & (rgb[..., 1] == rgb[..., 2])
+    v = rgb[..., 0].clamp(1e-5, 1.0 - 1e-5)
+    const_c = torch.stack(
+        [torch.zeros_like(v), torch.zeros_like(v), torch.log(v / (1.0 - v))],
+        dim=-1)
+    return torch.where(uniform[..., None], const_c, c)
+
+
+def sigmoid_poly_s4(c, lam: S4) -> S4:
+    """sigmoid(c0 t^2 + c1 t + c2) at S4 wavelengths; c: (R, 3)."""
+    c0, c1, c2 = c[..., 0], c[..., 1], c[..., 2]
+    scale = 1.0 / (LAMBDA_MAX - LAMBDA_MIN)
+
+    def lane(l):
+        t = (l - LAMBDA_MIN) * scale
+        return torch.sigmoid((c0 * t + c1) * t + c2)
+
+    return S4(*(lane(l) for l in lam.lanes))
+
+
+def unbounded_eval_s4(rgb, lam: S4, zn, coeffs) -> S4:
+    """RgbUnboundedSpectrum: scale = 2*max(rgb), poly of rgb/scale."""
+    scale = 2.0 * rgb.amax(dim=-1)
+    rgb_n = torch.where(scale[:, None] > 0,
+                        rgb / torch.clamp(scale[:, None], min=1e-12), 0.0)
+    c = lookup_coeffs(rgb_n, zn, coeffs)
+    return sigmoid_poly_s4(c, lam) * scale
+
+
+def illuminant_eval_s4(rgb, lam: S4, zn, coeffs, d65_dense,
+                       d65_vals=None) -> S4:
+    """RgbIlluminantSpectrum: unbounded poly x D65; d65_vals: optional S4
+    of D65 already evaluated at ``lam``."""
+    from .grid import eval_dense_s4
+    base = unbounded_eval_s4(rgb, lam, zn, coeffs)
+    if d65_vals is not None:
+        return base * d65_vals
+    return base * eval_dense_s4(d65_dense.to(torch.float32), lam)
