@@ -81,6 +81,55 @@ def test_any_hit_kernel_matches_plain_and_counts(dragon, dev):
     assert visits > 0 and tests > 0
 
 
+def test_closest_hit_precise_kernel_matches_plain(dragon, dev):
+    o, d, act, _ = _rays(8192, 3, dev)
+    rays = ttrace.pack_rays(o, d, ttrace.BIG_T, act)
+    before = cuda_trace.LAUNCHES["closest_hit_precise"]
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = cuda_trace.closest_hit_precise(
+        dragon.nodes_f, dragon.nodes_i, dragon.tri9, dragon.stack_depth,
+        rays, counters=counters)
+    assert cuda_trace.LAUNCHES["closest_hit_precise"] == before + 1
+    ref = cuda_trace.closest_hit_precise_plain(dragon.tri9, rays)
+    torch.cuda.synchronize()
+    t, tri, b1, b2, hit = got
+    same = (hit == ref[4]) & (tri == ref[1])
+    assert same.float().mean().item() >= 0.9999
+    both = same & hit
+    assert both.any()
+    for a, b in ((t, ref[0]), (b1, ref[2]), (b2, ref[3])):
+        assert torch.equal(a[both], b[both])
+    assert not hit[~act].any()
+    assert min(counters.tolist()) > 0
+
+
+def test_any_hit_precise_kernel_matches_plain(dragon, dev):
+    o, d, act, tmax = _rays(8192, 4, dev)
+    rays = ttrace.pack_rays(o, d, tmax, act)
+    before = cuda_trace.LAUNCHES["any_hit_precise"]
+    got = cuda_trace.any_hit_precise(dragon.nodes_f, dragon.nodes_i,
+                                     dragon.tri9, dragon.stack_depth, rays)
+    assert cuda_trace.LAUNCHES["any_hit_precise"] == before + 1
+    ref = cuda_trace.any_hit_precise_plain(dragon.tri9, rays)
+    torch.cuda.synchronize()
+    assert (got == ref).float().mean().item() >= 0.9999
+    assert got.any() and not got[~act].any()
+
+
+def test_precise_watertight_on_shared_diagonal(dev):
+    """Axis-aligned rays onto the shared diagonal of a quad: the precise
+    kernel hits on every ray."""
+    quad = tmesh.quad([-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0])
+    p = quad.positions[quad.indices]
+    fb = tbvh.build_bvh(p.min(1), p.max(1))
+    arrs = ttrace.pack_bvh(fb, p[fb.order]).to(dev)
+    s = torch.linspace(-0.999, 0.999, 4096, device=dev)
+    o = V3(s, s, torch.ones_like(s))
+    d = V3(torch.zeros_like(s), torch.zeros_like(s), -torch.ones_like(s))
+    h = ttrace.intersect(arrs, o, d, precise=True)
+    assert h.hit.all()
+
+
 def test_wrapper_checks_inputs(dragon, dev):
     o, d, act, _ = _rays(64, 2, dev)
     rays = ttrace.pack_rays(o, d, 1.0, act)
@@ -93,3 +142,7 @@ def test_wrapper_checks_inputs(dragon, dev):
     with pytest.raises(ValueError):
         cuda_trace.any_hit(dragon.nodes_f, dragon.nodes_i, dragon.tri_m12,
                            dragon.stack_depth, rays[:, ::2])
+    with pytest.raises(ValueError):   # the precise kernels take tri9
+        cuda_trace.closest_hit_precise(dragon.nodes_f, dragon.nodes_i,
+                                       dragon.tri_m12, dragon.stack_depth,
+                                       rays)

@@ -1,9 +1,10 @@
-"""Port vs JAX: Z-Sobol draws (bit-exact) and camera rays.
+"""Port vs JAX: Z-Sobol and random (threefry) draws (bit-exact) and camera
+rays.
 
 The same (pixel, sample, dim) inputs, made with numpy from a seed, go
-through ``tpu_pathtracer.render.sampler.ZSobolSampler`` and its port;
-draws must match bit for bit, including per-lane sample and dim arrays
-as the regenerative wavefront uses them.
+through ``tpu_pathtracer.render.sampler.ZSobolSampler`` / ``RandomSampler``
+and their ports; draws must match bit for bit, including per-lane sample
+and dim arrays as the regenerative wavefront uses them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +79,56 @@ def test_zsobol_negative_sample_index_matches():
     t = ts.get_1d(torch.from_numpy(px), torch.from_numpy(sample),
                   torch.from_numpy(dim))
     assert np.array_equal(_bits(j), _bits(t.numpy()))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_random_per_lane_bit_exact(seed):
+    """get_1d / get_2d with per-lane sample and dim arrays."""
+    px, sample, dim = _inputs(seed + 20, 2048, (1024, 1024), 64, 170)
+    js = jsam.RandomSampler(seed=seed, spp=64, resolution=(1024, 1024))
+    ts = tsam.make_sampler("random", seed, 64, (1024, 1024))
+    assert isinstance(ts, tsam.RandomSampler)
+    jpx, tpx = jnp.asarray(px), torch.from_numpy(px)
+    j1 = js.get_1d(jpx, jnp.asarray(sample), jnp.asarray(dim))
+    t1 = ts.get_1d(tpx, torch.from_numpy(sample), torch.from_numpy(dim))
+    assert np.array_equal(_bits(j1), _bits(t1.numpy()))
+    assert 0.0 <= float(t1.min()) and float(t1.max()) < 1.0
+    j2 = js.get_2d(jpx, jnp.asarray(sample), jnp.asarray(dim))
+    t2 = ts.get_2d(tpx, torch.from_numpy(sample), torch.from_numpy(dim))
+    assert np.array_equal(_bits(j2.x), _bits(t2.x.numpy()))
+    assert np.array_equal(_bits(j2.y), _bits(t2.y.numpy()))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_random_scalar_grid_bit_exact(seed):
+    """Scalar (sample, dim) over a (pixel, sample, dim) grid."""
+    res = (32, 24)
+    xs, ys = np.meshgrid(np.arange(res[0]), np.arange(res[1]))
+    px = np.stack([xs.reshape(-1), ys.reshape(-1)], -1).astype(np.int32)
+    js = jsam.RandomSampler(seed=seed, spp=8, resolution=res)
+    ts = tsam.RandomSampler(seed=seed, spp=8, resolution=res)
+    for sample in (0, 5):
+        for dim in (0, 1, 12, 59):
+            j = js.get_1d(jnp.asarray(px), sample, dim)
+            t = ts.get_1d(torch.from_numpy(px), sample, dim)
+            assert np.array_equal(_bits(j), _bits(t.numpy())), (sample, dim)
+            j2 = js.get_2d(jnp.asarray(px), sample, dim)
+            t2 = ts.get_2d(torch.from_numpy(px), sample, dim)
+            assert np.array_equal(_bits(j2.x), _bits(t2.x.numpy()))
+            assert np.array_equal(_bits(j2.y), _bits(t2.y.numpy()))
+
+
+def test_threefry_block_known_answer():
+    """Threefry-2x32, 20 rounds: the Random123 known-answer vectors."""
+    def block(k0, k1, x0, x1):
+        t = [torch.tensor([v], dtype=torch.int64) for v in (k0, k1, x0, x1)]
+        a, b = tsam._threefry2x32(*t)
+        return int(a), int(b)
+    assert block(0, 0, 0, 0) == (0x6B200159, 0x99BA4EFE)
+    assert block(0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF) == \
+        (0x1CB996FC, 0xBB002BE7)
+    assert block(0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3) == \
+        (0xC4923A9C, 0x483DF7A0)
 
 
 def test_fmix32_and_owen_match():

@@ -1,8 +1,9 @@
 """The port's scene build vs the JAX package's, import hygiene, the device
 rule, and the NotImplementedError fences around the slice.
 
-Both packages build scene 17 with the pure-numpy SAH builder (the JAX one
-with TPT_NO_NATIVE=1), so every table must come out the same: integer and
+Both packages build scenes 0, 6, 16 and 17 with the pure-numpy SAH builder
+(the JAX one with TPT_NO_NATIVE=1), so every table must come out the same:
+integer and
 BVH tables exactly, float tables within 1e-6 relative (the rgb2spec
 coefficient lookup runs in float32 on both sides).
 """
@@ -22,7 +23,7 @@ from tpu_pathtracer_torch import resolve_device
 from tpu_pathtracer_torch.render import integrator as tint
 from tpu_pathtracer_torch.render.sampler import make_sampler
 from tpu_pathtracer_torch.scene import builder as tbuilder
-from tpu_pathtracer_torch.scene.types import MAT_METAL, SceneMeta, check_ported
+from tpu_pathtracer_torch.scene.types import MAT_GLASS, SceneMeta, check_ported
 from tpu_pathtracer_torch.scenes import load_scene as tload
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "tpu_pathtracer_torch"
@@ -48,7 +49,21 @@ def _eq(t, j, name):
 
 
 def test_scene17_tables_match_jax(scenes):
-    (js, jm, jc), (ts, tm, tc) = scenes
+    _tables_match(*scenes)
+
+
+@pytest.mark.parametrize("n", [0, 6, 16])
+def test_scene_tables_match_jax(n):
+    """Scenes 0 (Lambert bunny), 6 (gold bunny: the eta and k bank rows)
+    and 16 (clearcoat dragon) built by both packages."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPT_NO_NATIVE", "1")
+        j = jload(n, 32, 24, table_res=16)
+    _tables_match(j, tload(n, 32, 24, table_res=16, device="cpu"))
+
+
+def _tables_match(j, t):
+    (js, jm, jc), (ts, tm, tc) = j, t
     n = js.bvh.tri9.shape[0]
     for f in ("nodes_f", "nodes_i", "tri9"):
         _eq(getattr(ts.bvh, f), getattr(js.bvh, f), f)
@@ -114,23 +129,26 @@ def test_default_device_rule():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("change", [dict(strategy="pt"), dict(strategy="nee"),
-                                    dict(strategy="albedo"),
-                                    dict(sampler="random"),
-                                    dict(precise=True)])
-def test_outside_slice_config_raises(change):
+@pytest.mark.parametrize("change,error", [
+    (dict(early_exit=False), NotImplementedError),
+    (dict(strategy="albedo"), ValueError),     # an AOV: not a wavefront strategy
+    (dict(strategy="normal"), ValueError),
+    (dict(strategy="bdpt"), ValueError),
+    (dict(sampler="halton"), ValueError)])
+def test_outside_slice_config_raises(change, error):
     cfg = dataclasses.replace(tint.RenderConfig(8, 8, spp=1), **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         tint.render_wavefront(None, None, None, cfg)
 
 
 def test_outside_slice_scene_raises():
+    for n in (1, 3, 7, 19):     # point lights, textures, instances
+        with pytest.raises(NotImplementedError):
+            tload(n, 8, 8, device="cpu")
+    with pytest.raises(ValueError):
+        make_sampler("halton", 0, 1, (8, 8))
     with pytest.raises(NotImplementedError):
-        tload(0, 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_sampler("random", 0, 1, (8, 8))
-    with pytest.raises(NotImplementedError):
-        check_ported(SceneMeta(mat_types=(MAT_METAL,), light_types=(0,),
+        check_ported(SceneMeta(mat_types=(MAT_GLASS,), light_types=(0,),
                                n_tris=2, has_env=False, texture_shapes=()))
     with pytest.raises(NotImplementedError):
         check_ported(SceneMeta(mat_types=(0,), light_types=(1,), n_tris=2,

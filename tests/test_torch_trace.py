@@ -153,12 +153,15 @@ def test_plain_tie_keeps_lower_triangle_id():
 
 
 def test_precise_and_foreign_device_raise(dragon):
+    """``precise=True`` runs (its results are held to the JAX package in
+    tests/test_torch_trace_precise.py); a tensor on a device that is
+    neither the CPU nor a GPU raises."""
     _, _, tarrs = dragon
     o, d = _rays(4, 11)
-    with pytest.raises(NotImplementedError):
-        ttrace.intersect(tarrs, _v3(o), _v3(d), precise=True)
-    with pytest.raises(NotImplementedError):
-        ttrace.intersect_p(tarrs, _v3(o), _v3(d), 1.0, precise=True)
+    h = ttrace.intersect(tarrs, _v3(o), _v3(d), precise=True)
+    assert h.hit.shape == (4,) and h.hit.dtype == torch.bool
+    occ = ttrace.intersect_p(tarrs, _v3(o), _v3(d), 1.0, precise=True)
+    assert occ.shape == (4,) and not occ.any()
     rays = ttrace.pack_rays(_v3(o), _v3(d), 1.0).to("meta")
     with pytest.raises(ValueError):
         cuda_trace.closest_hit(tarrs.nodes_f, tarrs.nodes_i, tarrs.tri_m12,

@@ -6,10 +6,13 @@ layout (``utils``, ``spectrum``, ``color``, ``scene``, ``scenes``, ``ops``,
 It imports ``torch`` and ``numpy`` only, never ``jax`` and nothing of
 ``tpu_pathtracer``.
 
-What is ported so far is the flagship forward render: scene 17 (Cornell
-box + rough clearcoat dragon), MIS strategy, Z-Sobol sampler, with the two
-traversal kernels (closest hit, any hit) hand-written in CUDA C++ for
-Hopper (``csrc/trace_kernels.cu``).  Anything outside that slice raises
+What is ported so far is the forward render of scenes 0, 6, 16 and 17
+(Cornell box with a Lambert or gold bunny or a clearcoat dragon): the pt,
+nee and mis strategies and the albedo and normal AOVs, the random and
+Z-Sobol samplers, and the traversal kernels (closest hit and any hit, each
+with the fast and with the precise watertight hit test) hand-written in
+CUDA C++ for Hopper (``csrc/trace_kernels.cu``).  ``RenderConfig.precise``
+selects the hit test.  Anything else raises
 ``NotImplementedError``.
 
 Entry points take ``device=None`` and then run on ``cuda``; with no GPU

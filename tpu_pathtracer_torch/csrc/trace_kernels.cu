@@ -1,9 +1,14 @@
-// Ray traversal kernels for Hopper (sm_90a): closest hit (K1) and any hit (K2).
+// Ray traversal kernels for Hopper (sm_90a): closest hit and any hit, each
+// with the fast unit-triangle test (K1, K2) and with the precise watertight
+// shear test (K3, K2p).
 //
 // Replace the TPU kernels of tpu_pathtracer/ops/pallas_trace.py:
-//   closest_hit_kernel <- _kernel_closest_fast (with _block_test_fast and
-//                         the packed-key decode in traverse)
-//   any_hit_kernel     <- _kernel_anyhit (its fast, precise=False form)
+//   closest_hit_kernel         <- _kernel_closest_fast (with _block_test_fast
+//                                 and the packed-key decode in traverse)
+//   any_hit_kernel             <- _kernel_anyhit (its fast, precise=False form)
+//   closest_hit_precise_kernel <- _kernel_closest (with _ray_setup,
+//                                 _block_test and _diff_of_products)
+//   any_hit_precise_kernel     <- _kernel_anyhit (its precise=True form)
 //
 // Design.  The TPU kernels test every ray of a 64-ray subtile against
 // dense 128-triangle blocks held in VMEM, because TPU gathers run as a
@@ -11,9 +16,10 @@
 // walks the flat BVH for one ray: pop a node ref from a per-thread stack,
 // test both child boxes of an internal node (rows of nodes_f / nodes_i)
 // and push the hit children far-first, or test the <= 7 triangles of an
-// inline leaf against their unit-triangle transform rows (tri_m12).
+// inline leaf: their unit-triangle transform rows (tri_m12) in the fast
+// kernels, their vertex rows (tri9) in the precise ones.
 //
-// Hit test (the same arithmetic as the plain PyTorch version in
+// Fast hit test (K1, K2; the same arithmetic as the plain PyTorch version in
 // ops/cuda_trace.py, term for term and in the same order; build with
 // --fmad=false so no multiply-add is contracted and the two agree bit for
 // bit):  [o,1] and [d,0] in triangle coordinates give t = -o_w / d_w,
@@ -29,6 +35,23 @@
 // chip_smoke.py: shadow rays grazing the light quad, t off by ~5e-5
 // relative); without the slack the walk culls triangles whose fast test
 // the brute-force plain version counts as hits below t_max.
+//
+// Precise hit test (K3, K2p; the arithmetic of _ray_setup and _block_test,
+// term for term): per ray, the axis kz of the largest |d| (ties as in
+// _ray_setup: x wins over z, y over x and z) becomes z and the shear
+// constants sx, sy, sz follow; per triangle, the vertices are translated to
+// the ray origin, permuted and sheared, the three edge functions are
+// Dekker-compensated differences of products (split 4097; their sign is
+// exact, which needs --fmad=false), and a hit needs all three on one side,
+// det != 0, the sign-consistent bound test of t_scaled against t_max * det
+// before the divide, and t = t_scaled / det > 1e-6.  The bound test uses
+// the ray's own t_max, not the shrinking best t, so that the closest hit is
+// the plain version's: the smallest t among the hits, the lower id on an
+// exact tie.  The nine vertex floats are scalar __ldg loads from tri9
+// (36-byte rows are not 16-byte aligned); the axis permutation is folded
+// into the load address (row[3 v + k]).  The box cull keeps the padded far
+// distance and T_SLACK: the precise t is tight, but a triangle lying in a
+// box face can still lose its box to slab rounding.
 //
 // What bounds it: per-ray work is data-dependent (node visits and
 // triangle tests), and the loads are scattered gathers from ~1.2 MB of
@@ -93,16 +116,101 @@ __device__ __forceinline__ bool tri_test(const float* __restrict__ tri_m12,
     return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 1e-6f);
 }
 
+// Per-ray constants of the precise test (_ray_setup).
+struct Shear {
+    int kx, ky, kz;
+    float sx, sy, sz, opx, opy, opz;
+};
+
+__device__ __forceinline__ float pick3(int k, float x, float y, float z) {
+    return k == 0 ? x : (k == 1 ? y : z);
+}
+
+__device__ __forceinline__ Shear ray_setup(const Ray& r) {
+    Shear s;
+    float adx = fabsf(r.dx), ady = fabsf(r.dy), adz = fabsf(r.dz);
+    s.kz = adx > ady ? (adx >= adz ? 0 : 2) : (ady >= adz ? 1 : 2);
+    s.kx = (s.kz + 1) % 3;
+    s.ky = (s.kz + 2) % 3;
+    float dpz = pick3(s.kz, r.dx, r.dy, r.dz);
+    s.sx = -pick3(s.kx, r.dx, r.dy, r.dz) / dpz;
+    s.sy = -pick3(s.ky, r.dx, r.dy, r.dz) / dpz;
+    s.sz = 1.0f / dpz;
+    s.opx = pick3(s.kx, r.ox, r.oy, r.oz);
+    s.opy = pick3(s.ky, r.ox, r.oy, r.oz);
+    s.opz = pick3(s.kz, r.ox, r.oy, r.oz);
+    return s;
+}
+
+// Error-free product: p = fl(x y), err = x y - p (Dekker split 2^12 + 1).
+__device__ __forceinline__ void two_prod(float x, float y, float& p, float& err) {
+    p = x * y;
+    float xs = 4097.0f * x;
+    float x_hi = xs - (xs - x);
+    float x_lo = x - x_hi;
+    float ys = 4097.0f * y;
+    float y_hi = ys - (ys - y);
+    float y_lo = y - y_hi;
+    err = ((x_hi * y_hi - p) + x_hi * y_lo + x_lo * y_hi) + x_lo * y_lo;
+}
+
+// a b - c d with an exact sign.
+__device__ __forceinline__ float diff_of_products(float a, float b, float c, float d) {
+    float p, pe, q, qe;
+    two_prod(a, b, p, pe);
+    two_prod(c, d, q, qe);
+    return (p - q) + (pe - qe);
+}
+
+// Watertight shear test of triangle `tri` (a 9-float row of tri9); u, v are
+// the barycentric weights of p1, p2.
+__device__ __forceinline__ bool tri_test_precise(const float* __restrict__ tri9,
+                                                 int tri, const Shear& s,
+                                                 float tmax, float& t, float& u,
+                                                 float& v) {
+    const float* row = tri9 + 9 * (size_t)tri;
+    float px[3], py[3], pz[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        float vx = __ldg(row + 3 * k + s.kx) - s.opx;
+        float vy = __ldg(row + 3 * k + s.ky) - s.opy;
+        float vz = __ldg(row + 3 * k + s.kz) - s.opz;
+        px[k] = vx + s.sx * vz;
+        py[k] = vy + s.sy * vz;
+        pz[k] = s.sz * vz;
+    }
+    float e0 = diff_of_products(px[1], py[2], py[1], px[2]);
+    float e1 = diff_of_products(px[2], py[0], py[2], px[0]);
+    float e2 = diff_of_products(px[0], py[1], py[0], px[1]);
+    bool same_side = (e0 <= 0.0f && e1 <= 0.0f && e2 <= 0.0f) ||
+                     (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f);
+    float det = e0 + e1 + e2;
+    bool det_ok = det != 0.0f;
+    float t_scaled = e0 * pz[0] + e1 * pz[1] + e2 * pz[2];
+    float bound = tmax * det;
+    bool t_ok = det < 0.0f ? (t_scaled <= 0.0f && t_scaled > bound)
+                           : (t_scaled >= 0.0f && t_scaled < bound);
+    float inv_det = det_ok ? 1.0f / det : 0.0f;
+    t = t_scaled * inv_det;
+    u = e1 * inv_det;
+    v = e2 * inv_det;
+    return same_side && det_ok && t_ok && (t > 1e-6f);
+}
+
 // Walk the BVH for one ray.  ANY: stop at the first hit below t_max.
-template <bool ANY>
+// PRECISE: `tris` is tri9 and the hit test is the watertight shear test;
+// else `tris` is tri_m12 and it is the unit-triangle test.
+template <bool ANY, bool PRECISE = false>
 __device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
                                      const int* __restrict__ nodes_i,
-                                     const float* __restrict__ tri_m12,
+                                     const float* __restrict__ tris,
                                      int n_tri, const Ray& r, float& best_t,
                                      int& best_tri, float& best_u,
                                      float& best_v, unsigned& visits,
                                      unsigned& tests) {
     float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
+    Shear sh;
+    if constexpr (PRECISE) sh = ray_setup(r);
     int stack[MAX_STACK];
     int sp = 0;
     stack[sp++] = 0;  // ref 0 is the root (a pseudo-root for a one-leaf tree)
@@ -117,18 +225,25 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
                 if (tri >= n_tri) break;
                 ++tests;
                 float t, u, v;
-                if (!tri_test(tri_m12, tri, r, t, u, v)) continue;
-                if (ANY) {
-                    if (t < r.tmax) {
-                        best_tri = tri;
-                        return;
-                    }
-                } else if (t < best_t || (t == best_t && tri < best_tri)) {
-                    best_t = t;
-                    best_tri = tri;
-                    best_u = u;
-                    best_v = v;
+                bool better;
+                if constexpr (PRECISE) {
+                    // the bound test inside is against the ray's t_max; the
+                    // first hit is kept whatever its t (that test can pass
+                    // a t that rounds to just above t_max)
+                    if (!tri_test_precise(tris, tri, sh, r.tmax, t, u, v)) continue;
+                    better = ANY || best_tri < 0 || t < best_t ||
+                             (t == best_t && tri < best_tri);
+                } else {
+                    if (!tri_test(tris, tri, r, t, u, v)) continue;
+                    better = ANY ? t < r.tmax
+                                 : (t < best_t || (t == best_t && tri < best_tri));
                 }
+                if (!better) continue;
+                best_tri = tri;
+                if (ANY) return;
+                best_t = t;
+                best_u = u;
+                best_v = v;
             }
             continue;
         }
@@ -208,6 +323,61 @@ any_hit_kernel(int n, const float* __restrict__ rays,
     }
 }
 
+__global__ void __launch_bounds__(BLOCK_THREADS)
+closest_hit_precise_kernel(int n, const float* __restrict__ rays,
+                           const float* __restrict__ nodes_f,
+                           const int* __restrict__ nodes_i,
+                           const float* __restrict__ tri9, int n_tri,
+                           float* __restrict__ t_out, int* __restrict__ tri_out,
+                           float* __restrict__ b1_out, float* __restrict__ b2_out,
+                           bool* __restrict__ hit_out,
+                           unsigned long long* __restrict__ counters) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    Ray r = load_ray(rays, n, i);
+    float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f;
+    int best_tri = -1;
+    unsigned visits = 0, tests = 0;
+    if (r.tmax > 0.0f) {  // t_max <= 0: dead ray
+        walk<false, true>(nodes_f, nodes_i, tri9, n_tri, r, best_t, best_tri,
+                          best_u, best_v, visits, tests);
+    }
+    bool hit = best_tri >= 0;
+    t_out[i] = hit ? best_t : 3.0e38f;
+    tri_out[i] = best_tri;
+    b1_out[i] = hit ? best_u : 0.0f;
+    b2_out[i] = hit ? best_v : 0.0f;
+    hit_out[i] = hit;
+    if (counters != nullptr) {
+        atomicAdd(counters, (unsigned long long)visits);
+        atomicAdd(counters + 1, (unsigned long long)tests);
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS)
+any_hit_precise_kernel(int n, const float* __restrict__ rays,
+                       const float* __restrict__ nodes_f,
+                       const int* __restrict__ nodes_i,
+                       const float* __restrict__ tri9, int n_tri,
+                       bool* __restrict__ occ_out,
+                       unsigned long long* __restrict__ counters) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    Ray r = load_ray(rays, n, i);
+    float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f;
+    int best_tri = -1;
+    unsigned visits = 0, tests = 0;
+    if (r.tmax >= 0.0f) {  // t_max < 0: inactive ray, reports false
+        walk<true, true>(nodes_f, nodes_i, tri9, n_tri, r, best_t, best_tri,
+                         best_u, best_v, visits, tests);
+    }
+    occ_out[i] = best_tri >= 0;
+    if (counters != nullptr) {
+        atomicAdd(counters, (unsigned long long)visits);
+        atomicAdd(counters + 1, (unsigned long long)tests);
+    }
+}
+
 static inline dim3 grid_for(int n) {
     return dim3((unsigned)((n + BLOCK_THREADS - 1) / BLOCK_THREADS));
 }
@@ -238,6 +408,37 @@ extern "C" int launch_any_hit(int n, const void* rays, const void* nodes_f,
         any_hit_kernel<<<grid_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
             n, (const float*)rays, (const float*)nodes_f, (const int*)nodes_i,
             (const float*)tri_m12, n_tri, (bool*)occ_out,
+            (unsigned long long*)counters);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int launch_closest_hit_precise(int n, const void* rays,
+                                          const void* nodes_f,
+                                          const void* nodes_i, const void* tri9,
+                                          int n_tri, void* t_out, void* tri_out,
+                                          void* b1_out, void* b2_out,
+                                          void* hit_out, void* counters,
+                                          void* stream) {
+    if (n > 0) {
+        closest_hit_precise_kernel<<<grid_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+            n, (const float*)rays, (const float*)nodes_f, (const int*)nodes_i,
+            (const float*)tri9, n_tri, (float*)t_out, (int*)tri_out,
+            (float*)b1_out, (float*)b2_out, (bool*)hit_out,
+            (unsigned long long*)counters);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int launch_any_hit_precise(int n, const void* rays,
+                                      const void* nodes_f, const void* nodes_i,
+                                      const void* tri9, int n_tri,
+                                      void* occ_out, void* counters,
+                                      void* stream) {
+    if (n > 0) {
+        any_hit_precise_kernel<<<grid_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+            n, (const float*)rays, (const float*)nodes_f, (const int*)nodes_i,
+            (const float*)tri9, n_tri, (bool*)occ_out,
             (unsigned long long*)counters);
     }
     return (int)cudaGetLastError();

@@ -1,19 +1,24 @@
-"""Closest-hit (K1) and any-hit (K2) traversal: CUDA kernels and their
-plain PyTorch versions.
+"""Closest-hit and any-hit traversal, each with the fast unit-triangle
+test (K1, K2) and with the precise watertight test (K3, K2p): CUDA kernels
+and their plain PyTorch versions.
 
 The kernels (``csrc/trace_kernels.cu``, see its header for the design)
-replace ``_kernel_closest_fast`` and ``_kernel_anyhit`` of
-``tpu_pathtracer/ops/pallas_trace.py``.  They are compiled with ``nvcc``
-for ``sm_90a`` on first use, into ``build/tpu_pathtracer_torch/`` under a
-name keyed on a hash of the source and flags, and bound with ``ctypes``.
+replace ``_kernel_closest_fast``, ``_kernel_closest`` and both forms of
+``_kernel_anyhit`` of ``tpu_pathtracer/ops/pallas_trace.py``.  They are
+compiled with ``nvcc`` for ``sm_90a`` on first use, into
+``build/tpu_pathtracer_torch/`` under a name keyed on a hash of the source
+and flags, and bound with ``ctypes``.
 
 Each wrapper takes the rays as one (7, R) float32 tensor
-[ox oy oz dx dy dz t_max] (``ops.trace.pack_rays``).  For a CPU tensor it
-runs the plain version; for a CUDA tensor it launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches per kernel name.
+[ox oy oz dx dy dz t_max] (``ops.trace.pack_rays``) and the triangle table
+of its test: ``tri_m12`` for the fast kernels, ``tri9`` for the precise
+ones.  For a CPU tensor it runs the plain version; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches per
+kernel name.
 
-The plain versions are brute force: every ray against every triangle
-(chunked over rays), with the same hit-test arithmetic as the kernels.
+The plain versions are brute force: every live ray against every
+triangle (chunked over rays), with the same hit-test arithmetic as the
+kernels.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import subprocess
 import tempfile
 
 import torch
+
+from ..utils.math import shear_test
 
 BIG_T = 3.0e38
 MAX_STACK = 64          # must match MAX_STACK in csrc/trace_kernels.cu
@@ -104,6 +111,10 @@ def _library():
         lib.launch_closest_hit.restype = i
         lib.launch_any_hit.argtypes = [i, p, p, p, p, i, p, p, p]
         lib.launch_any_hit.restype = i
+        lib.launch_closest_hit_precise.argtypes = lib.launch_closest_hit.argtypes
+        lib.launch_closest_hit_precise.restype = i
+        lib.launch_any_hit_precise.argtypes = lib.launch_any_hit.argtypes
+        lib.launch_any_hit_precise.restype = i
         lib.trace_kernels_max_stack.argtypes = []
         lib.trace_kernels_max_stack.restype = i
         if lib.trace_kernels_max_stack() != MAX_STACK:
@@ -112,7 +123,10 @@ def _library():
     return _LIB
 
 
-def _check_inputs(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters):
+def _check_inputs(nodes_f, nodes_i, tris, stack_depth, rays, counters,
+                  tri_cols=12):
+    """tris: the (T, 12) tri_m12 of the fast kernels or, with tri_cols=9,
+    the (T, 9) tri9 of the precise ones."""
     dev = rays.device
 
     def need(t, name, dtype, ncols):
@@ -127,7 +141,8 @@ def _check_inputs(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters):
 
     need(nodes_f, "nodes_f", torch.float32, 12)
     need(nodes_i, "nodes_i", torch.int32, 2)
-    need(tri_m12, "tri_m12", torch.float32, 12)
+    need(tris, "tri_m12" if tri_cols == 12 else "tri9", torch.float32,
+         tri_cols)
     if nodes_f.shape[0] != nodes_i.shape[0]:
         raise ValueError("nodes_f and nodes_i row counts differ")
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
@@ -135,7 +150,7 @@ def _check_inputs(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters):
                          f"{tuple(rays.shape)}")
     if not rays.is_contiguous():
         raise ValueError("rays must be contiguous")
-    if rays.shape[1] >= 2 ** 31 or tri_m12.shape[0] >= 2 ** 31:
+    if rays.shape[1] >= 2 ** 31 or tris.shape[0] >= 2 ** 31:
         raise ValueError("ray or triangle count exceeds int32")
     if stack_depth > MAX_STACK:
         raise ValueError(f"BVH needs {stack_depth} stack slots, the kernels "
@@ -164,6 +179,49 @@ def _plain_or_kernel(rays):
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _launch_closest(name, nodes_f, nodes_i, tris, tri_cols, stack_depth,
+                    rays, counters):
+    _check_inputs(nodes_f, nodes_i, tris, stack_depth, rays, counters,
+                  tri_cols)
+    n = rays.shape[1]
+    dev = rays.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    b1 = torch.empty(n, dtype=torch.float32, device=dev)
+    b2 = torch.empty(n, dtype=torch.float32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    launch = getattr(_library(), "launch_" + name)
+    with torch.cuda.device(dev):
+        rc = launch(
+            n, rays.data_ptr(), nodes_f.data_ptr(), nodes_i.data_ptr(),
+            tris.data_ptr(), tris.shape[0], t.data_ptr(),
+            tri.data_ptr(), b1.data_ptr(), b2.data_ptr(), hit.data_ptr(),
+            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return t, tri, b1, b2, hit
+
+
+def _launch_any(name, nodes_f, nodes_i, tris, tri_cols, stack_depth, rays,
+                counters):
+    _check_inputs(nodes_f, nodes_i, tris, stack_depth, rays, counters,
+                  tri_cols)
+    n = rays.shape[1]
+    dev = rays.device
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    launch = getattr(_library(), "launch_" + name)
+    with torch.cuda.device(dev):
+        rc = launch(
+            n, rays.data_ptr(), nodes_f.data_ptr(), nodes_i.data_ptr(),
+            tris.data_ptr(), tris.shape[0], occ.data_ptr(),
+            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return occ
+
+
 def closest_hit(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters=None):
     """K1: closest hit per ray -> (t, tri i32, b1, b2, hit bool), each (R,).
 
@@ -172,25 +230,8 @@ def closest_hit(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters=None):
     adds its node visits and triangle tests to."""
     if _plain_or_kernel(rays):
         return closest_hit_plain(tri_m12, rays)
-    _check_inputs(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters)
-    n = rays.shape[1]
-    dev = rays.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    b1 = torch.empty(n, dtype=torch.float32, device=dev)
-    b2 = torch.empty(n, dtype=torch.float32, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.launch_closest_hit(
-            n, rays.data_ptr(), nodes_f.data_ptr(), nodes_i.data_ptr(),
-            tri_m12.data_ptr(), tri_m12.shape[0], t.data_ptr(),
-            tri.data_ptr(), b1.data_ptr(), b2.data_ptr(), hit.data_ptr(),
-            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"closest_hit launch failed: cudaError {rc}")
-    LAUNCHES["closest_hit"] += 1
-    return t, tri, b1, b2, hit
+    return _launch_closest("closest_hit", nodes_f, nodes_i, tri_m12, 12,
+                           stack_depth, rays, counters)
 
 
 def any_hit(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters=None):
@@ -198,20 +239,27 @@ def any_hit(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters=None):
     with t_max < 0 are inactive and report False."""
     if _plain_or_kernel(rays):
         return any_hit_plain(tri_m12, rays)
-    _check_inputs(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters)
-    n = rays.shape[1]
-    dev = rays.device
-    occ = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.launch_any_hit(
-            n, rays.data_ptr(), nodes_f.data_ptr(), nodes_i.data_ptr(),
-            tri_m12.data_ptr(), tri_m12.shape[0], occ.data_ptr(),
-            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"any_hit launch failed: cudaError {rc}")
-    LAUNCHES["any_hit"] += 1
-    return occ
+    return _launch_any("any_hit", nodes_f, nodes_i, tri_m12, 12, stack_depth,
+                       rays, counters)
+
+
+def closest_hit_precise(nodes_f, nodes_i, tri9, stack_depth, rays,
+                        counters=None):
+    """K3: closest hit with the watertight shear test; the outputs, the
+    dead-ray rule and ``counters`` are those of ``closest_hit``."""
+    if _plain_or_kernel(rays):
+        return closest_hit_precise_plain(tri9, rays)
+    return _launch_closest("closest_hit_precise", nodes_f, nodes_i, tri9, 9,
+                           stack_depth, rays, counters)
+
+
+def any_hit_precise(nodes_f, nodes_i, tri9, stack_depth, rays, counters=None):
+    """K2p: occlusion with the watertight shear test; outputs and the
+    inactive-ray rule are those of ``any_hit``."""
+    if _plain_or_kernel(rays):
+        return any_hit_precise_plain(tri9, rays)
+    return _launch_any("any_hit_precise", nodes_f, nodes_i, tri9, 9,
+                       stack_depth, rays, counters)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +267,9 @@ def any_hit(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters=None):
 # ---------------------------------------------------------------------------
 
 def _chunk_rows(n_tri: int, device) -> int:
-    budget = (1 << 24) if device.type == "cuda" else (1 << 21)
+    # ray x triangle pairs per chunk; on the CPU a chunk's temporaries
+    # should stay in cache
+    budget = (1 << 24) if device.type == "cuda" else (1 << 19)
     return max(1, budget // max(n_tri, 1))
 
 
@@ -241,35 +291,70 @@ def _pair_test(tri_m12, rays_chunk):
     return t, u, v, hit
 
 
-def closest_hit_plain(tri_m12, rays):
-    """Plain version of K1: brute force with a first-index argmin, so an
-    exact tie in t keeps the lower triangle id."""
+def _pair_test_precise(tri9, rays_chunk):
+    """(C, T) t, b1, b2, hit of the watertight shear test for C rays
+    against all T triangles; the axis choice on ties is that of the
+    kernel (x wins over z, y over x and z)."""
+    ox, oy, oz, dx, dy, dz, tmax = (rays_chunk[k][:, None] for k in range(7))
+    adx, ady, adz = dx.abs(), dy.abs(), dz.abs()
+    kz = torch.where(adx > ady, torch.where(adx >= adz, 0, 2),
+                     torch.where(ady >= adz, 1, 2))
+    verts = tuple(tuple(tri9[:, 3 * v + c][None, :] for c in range(3))
+                  for v in range(3))
+    return shear_test(ox, oy, oz, dx, dy, dz, kz, verts, tmax)
+
+
+def _closest_plain(pair_test, tris, rays):
     n = rays.shape[1]
-    step = _chunk_rows(tri_m12.shape[0], rays.device)
-    outs = []
-    for s in range(0, n, step):
-        t, u, v, hit = _pair_test(tri_m12, rays[:, s:s + step])
-        tm = torch.where(hit, t, float("inf"))
+    dev = rays.device
+    t = torch.full((n,), BIG_T, dtype=torch.float32, device=dev)
+    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    b1 = torch.zeros(n, dtype=torch.float32, device=dev)
+    b2 = torch.zeros(n, dtype=torch.float32, device=dev)
+    live = torch.nonzero(rays[6] > 0.0)[:, 0]       # t_max <= 0: dead ray
+    step = _chunk_rows(tris.shape[0], dev)
+    for s in range(0, live.shape[0], step):
+        rows = live[s:s + step]
+        tc, u, v, hit = pair_test(tris, rays[:, rows])
+        tm = torch.where(hit, tc, float("inf"))
         j = torch.argmin(tm, dim=1, keepdim=True)
         tj = tm.gather(1, j)[:, 0]
         found = tj < float("inf")
-        outs.append((torch.where(found, tj, BIG_T),
-                     torch.where(found, j[:, 0], -1).to(torch.int32),
-                     torch.where(found, u.gather(1, j)[:, 0], 0.0),
-                     torch.where(found, v.gather(1, j)[:, 0], 0.0),
-                     found))
-    if not outs:
-        e = rays.new_empty(0)
-        return e, e.to(torch.int32), e, e, e.to(torch.bool)
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+        t[rows] = torch.where(found, tj, BIG_T)
+        tri[rows] = torch.where(found, j[:, 0], -1).to(torch.int32)
+        b1[rows] = torch.where(found, u.gather(1, j)[:, 0], 0.0)
+        b2[rows] = torch.where(found, v.gather(1, j)[:, 0], 0.0)
+    return t, tri, b1, b2, tri >= 0
+
+
+def _any_plain(pair_test, tris, rays):
+    occ = torch.zeros(rays.shape[1], dtype=torch.bool, device=rays.device)
+    live = torch.nonzero(rays[6] >= 0.0)[:, 0]      # t_max < 0: inactive ray
+    step = _chunk_rows(tris.shape[0], rays.device)
+    for s in range(0, live.shape[0], step):
+        rows = live[s:s + step]
+        occ[rows] = pair_test(tris, rays[:, rows])[3].any(dim=1)
+    return occ
+
+
+def closest_hit_plain(tri_m12, rays):
+    """Plain version of K1: brute force with a first-index argmin, so an
+    exact tie in t keeps the lower triangle id."""
+    return _closest_plain(_pair_test, tri_m12, rays)
 
 
 def any_hit_plain(tri_m12, rays):
     """Plain version of K2: brute force, any hit in (1e-6, t_max)."""
-    n = rays.shape[1]
-    step = _chunk_rows(tri_m12.shape[0], rays.device)
-    outs = [_pair_test(tri_m12, rays[:, s:s + step])[3].any(dim=1)
-            for s in range(0, n, step)]
-    if not outs:
-        return rays.new_empty(0, dtype=torch.bool)
-    return torch.cat(outs)
+    return _any_plain(_pair_test, tri_m12, rays)
+
+
+def closest_hit_precise_plain(tri9, rays):
+    """Plain version of K3: brute force, the smallest t among the
+    watertight hits below the ray's t_max, the lower id on an exact tie."""
+    return _closest_plain(_pair_test_precise, tri9, rays)
+
+
+def any_hit_precise_plain(tri9, rays):
+    """Plain version of K2p: brute force, any watertight hit in
+    (1e-6, t_max)."""
+    return _any_plain(_pair_test_precise, tri9, rays)

@@ -7,8 +7,10 @@ CPU they run those kernels' plain PyTorch versions.  The JAX package's
 TPU-only machinery (block culling, coherence sort, chunking past
 MAX_DENSE_TRIS, the custom-vjp detachment) has no counterpart here.
 
-Only the fast (unit-triangle transform) hit test is ported; ``precise``
-is threaded explicitly and ``precise=True`` raises.
+``precise`` is an explicit argument of every query (there is no global
+switch and no environment default): False runs the fast unit-triangle
+transform test (K1, K2), True the watertight Dekker-compensated shear test
+(K3, K2p), whose hits are those of the JAX package's CPU BVH walk.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.math import intersect_triangle
 from . import cuda_trace
 
 BIG_T = 3.0e38
@@ -139,31 +142,29 @@ def pack_rays(ray_o, ray_d, t_max, active=None):
                         ray_d.x, ray_d.y, ray_d.z, t0]).to(torch.float32)
 
 
-def _check_fast(precise: bool) -> None:
-    if precise:
-        raise NotImplementedError(
-            "precise (watertight shear) traversal is not ported yet; "
-            "use precise=False")
-
-
 def intersect(bvh: BVHArrays, ray_o, ray_d, t_max=BIG_T, active=None,
               precise: bool = False) -> Hit:
     """Closest-hit query; ray_o/ray_d are V3 of (R,).  Inactive rays report
     a miss."""
-    _check_fast(precise)
-    t, tri, b1, b2, hit = cuda_trace.closest_hit(
-        bvh.nodes_f, bvh.nodes_i, bvh.tri_m12, bvh.stack_depth,
-        pack_rays(ray_o, ray_d, t_max, active))
-    return Hit(t=t, tri=tri, b1=b1, b2=b2, hit=hit)
+    rays = pack_rays(ray_o, ray_d, t_max, active)
+    if precise:
+        out = cuda_trace.closest_hit_precise(
+            bvh.nodes_f, bvh.nodes_i, bvh.tri9, bvh.stack_depth, rays)
+    else:
+        out = cuda_trace.closest_hit(
+            bvh.nodes_f, bvh.nodes_i, bvh.tri_m12, bvh.stack_depth, rays)
+    return Hit(*out)
 
 
 def intersect_p(bvh: BVHArrays, ray_o, ray_d, t_max, active=None,
                 precise: bool = False):
     """Occlusion (any hit in (1e-6, t_max)) query; returns (R,) bool."""
-    _check_fast(precise)
+    rays = pack_rays(ray_o, ray_d, t_max, active)
+    if precise:
+        return cuda_trace.any_hit_precise(bvh.nodes_f, bvh.nodes_i, bvh.tri9,
+                                          bvh.stack_depth, rays)
     return cuda_trace.any_hit(bvh.nodes_f, bvh.nodes_i, bvh.tri_m12,
-                              bvh.stack_depth,
-                              pack_rays(ray_o, ray_d, t_max, active))
+                              bvh.stack_depth, rays)
 
 
 def intersect_scene(scene, ray_o, ray_d, t_max=BIG_T, active=None,
@@ -179,3 +180,19 @@ def intersect_p_scene(scene, ray_o, ray_d, t_max, active=None,
     """Occlusion against the scene's main soup."""
     return intersect_p(scene.bvh, ray_o, ray_d, t_max, active=active,
                        precise=precise)
+
+
+def intersect_brute(p0, p1, p2, ray_o, ray_d, t_max=BIG_T) -> Hit:
+    """O(R*T) oracle for the traversal tests: ``intersect_triangle`` of
+    every (R, 3) ray against every (T, 3) triangle, first-index argmin."""
+    t, b1, b2, h = intersect_triangle(
+        ray_o[:, None, :], ray_d[:, None, :], p0[None], p1[None], p2[None],
+        torch.as_tensor(t_max, dtype=torch.float32))
+    t = torch.where(h, t, BIG_T)
+    i = torch.argmin(t, dim=1, keepdim=True)
+
+    def pick(a):
+        return a.gather(1, i)[:, 0]
+    hi = pick(h)
+    return Hit(t=pick(t), tri=torch.where(hi, i[:, 0], -1).to(torch.int32),
+               b1=pick(b1), b2=pick(b2), hit=hi)

@@ -2,7 +2,8 @@
 tpu_pathtracer_torch.profile_step).
 
 Builds scene 17 at 1024x1024 (table_res 64), the MIS + Z-Sobol config of
-chip_smoke.py, and runs the first tile's wavefront: WARMUP steps, then
+chip_smoke.py (``--precise``: with the watertight hit test), and runs the
+first tile's wavefront: WARMUP steps, then
 STEPS steps under ``torch.profiler`` (CPU + CUDA).  The integrator's
 module functions are wrapped in ``record_function`` ranges here, so the
 package itself carries no instrumentation.  Prints one JSON line:
@@ -43,6 +44,8 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=1024, help="film width = height")
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' rehearses on the plain versions")
+    ap.add_argument("--precise", action="store_true",
+                    help="profile the watertight path (K3 and K2p)")
     args = ap.parse_args()
     from .ops import trace
     from .render import bsdf, film, integrator as integ, lights, surface
@@ -55,13 +58,14 @@ def main() -> int:
     dev = resolve_device(args.device)
     W = H = args.size
     scene, meta, cam = load_scene(17, W, H, table_res=64, device=dev)
-    cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16)
+    cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16,
+                             precise=args.precise)
     tile = integ.tile_lanes(cfg)
     px = integ._pixel_grid(W, H, dev)[:tile]
 
     labels = {
-        (trace, "intersect_scene"): "trace.intersect_scene (K1)",
-        (trace, "intersect_p_scene"): "trace.intersect_p_scene (K2)",
+        (trace, "intersect_scene"): "trace.intersect_scene (K1 / K3)",
+        (trace, "intersect_p_scene"): "trace.intersect_p_scene (K2 / K2p)",
         (surface, "make_interaction"): "surface.make_interaction",
         (bsdf, "sample_material"): "bsdf.sample_material",
         (bsdf, "evaluate_material"): "bsdf.evaluate_material",
@@ -121,6 +125,7 @@ def main() -> int:
     print(json.dumps(dict(
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"), lanes=tile, steps=STEPS,
+        precise=args.precise,
         step_ms=step_ms, profiled_step_ms=profiled_ms,
         device_ms=device_us / STEPS / 1e3,
         busy_share=device_us / 1e3 / STEPS / step_ms,

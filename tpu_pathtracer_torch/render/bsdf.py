@@ -1,8 +1,9 @@
 """Material sample / evaluate with tag dispatch, for the ported materials.
 
 Counterpart of ``tpu_pathtracer/render/bsdf.py`` restricted to Lambert,
-the clearcoat (generalized-Schlick coat over the simple-PBR substrate with
-Beer-Lambert tint) and emission; a scene with any other material kind
+the measured-IOR conductor (metal), the clearcoat (generalized-Schlick coat
+over the simple-PBR substrate with Beer-Lambert tint) and emission; a
+scene with any other material kind
 raises ``NotImplementedError``.  Each kind present in the scene is
 evaluated over the whole ray batch and merged by ``mat_type`` masks.
 
@@ -20,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..scene.types import (MAT_CLEARCOAT, MAT_EMISSIVE, MAT_LAMBERT,
-                           PORTED_MAT_KINDS, MAT_NAMES)
+                           MAT_METAL, PORTED_MAT_KINDS, MAT_NAMES)
 from ..spectrum import grid as sgrid
 from ..spectrum import rgb2spec
 from ..spectrum.sampled import SampledWavelengths, terminate_secondary
@@ -47,7 +48,7 @@ def _check_kinds(meta) -> set:
     if missing:
         raise NotImplementedError(
             f"materials {sorted(MAT_NAMES[k] for k in missing)} are not "
-            "ported yet (ported: lambert, clearcoat, emissive)")
+            "ported yet (ported: lambert, metal, clearcoat, emissive)")
     return kinds
 
 
@@ -105,6 +106,75 @@ def _lambert_eval(scene, it, wo_t, wi_t, wl):
     f = albedo * torch.where(same, torch.abs(cos_i) * INV_PI, 0.0)
     pdf = torch.where(same, torch.abs(cos_i) * INV_PI, 0.0)
     return f, pdf
+
+
+# ---------------------------------------------------------------------------
+# Conductor / Metal
+# ---------------------------------------------------------------------------
+
+def _roughness(scene, it):
+    """Material roughness (constant; roughness textures are not ported)."""
+    return scene.materials.roughness[it.mat_id.long()]
+
+
+def _metal_eta_k(scene, it, wl):
+    m = scene.materials
+    mat = it.mat_id.long()
+    eta = _bank_eval(scene, torch.clamp(m.eta_row[mat], min=0), wl)
+    k = _bank_eval(scene, torch.clamp(m.k_row[mat], min=0), wl)
+    return eta, k
+
+
+def _torrance_sparrow_f(wo, wi, wm, eta, k, alpha):
+    cos_o = torch.abs(wo.z)
+    fres = mf.fresnel_complex(torch.abs(dot3(wo, wm)), eta, k)
+    d = mf.distribution_d(wm, alpha, alpha)
+    g = mf.g2(wo, wi, alpha, alpha)
+    return fres * torch.where(cos_o > 0.0,
+                              d * g / torch.clamp(4.0 * cos_o, min=1e-12), 0.0)
+
+
+def _metal_sample(scene, it, wo_t, uv2, wl):
+    eta, k = _metal_eta_k(scene, it, wl)
+    rough = _roughness(scene, it)
+    alpha = rough * rough
+    smooth = alpha < SMOOTH_ALPHA
+    wo = wo_t
+
+    # specular branch: wi = mirror, f = F, pdf = 1
+    wi_s = _mirror(wo)
+    f_s = mf.fresnel_complex(torch.abs(wi_s.z), eta, k)
+
+    # microfacet branch
+    wm = mf.sample_vndf(wo, uv2, alpha, alpha)
+    wi_m = mf.reflect(wo, wm)
+    same = mf.same_hemisphere(wo, wi_m)
+    f_m = _torrance_sparrow_f(wo, wi_m, wm, eta, k, alpha)
+    pdf_m = mf.vndf_pdf(wo, wm, alpha, alpha) / torch.clamp(
+        4.0 * torch.abs(dot3(wo, wm)), min=1e-12)
+
+    zero4 = smap(torch.zeros_like, f_m)
+    f = sel(smooth, f_s, sel(same, f_m, zero4))
+    wi = sel(smooth, wi_s, wi_m)
+    pdf = torch.where(smooth, 1.0, pdf_m)
+    ok = (wo.z != 0.0) & (smooth | (same & (pdf_m > 0.0)))
+    return f, wi, pdf, ok, smooth
+
+
+def _metal_eval(scene, it, wo_t, wi_t, wl):
+    eta, k = _metal_eta_k(scene, it, wl)
+    rough = _roughness(scene, it)
+    alpha = rough * rough
+    smooth = alpha < SMOOTH_ALPHA
+    wo, wi = wo_t, wi_t
+    wm = wo + wi
+    ok = (~smooth) & mf.same_hemisphere(wo, wi) & (dot3(wm, wm) > 0.0) & \
+        (wo.z != 0.0) & (wi.z != 0.0)
+    wm = normalize3(wm)
+    f = _torrance_sparrow_f(wo, wi, wm, eta, k, alpha)
+    pdf = mf.vndf_pdf(wo, wm, alpha, alpha) / torch.clamp(
+        4.0 * torch.abs(dot3(wo, wm)), min=1e-12)
+    return smap(lambda x: torch.where(ok, x, 0.0), f), torch.where(ok, pdf, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +422,9 @@ def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
         lf, lwi, lpdf, lok = _lambert_sample(scene, it, wo_t, uv2, wl)
         merge(mat_type == MAT_LAMBERT, lf, lwi, lpdf, lok,
               torch.zeros_like(sampled))
+    if MAT_METAL in kinds:
+        mf_, mwi, mpdf, mok, mspec = _metal_sample(scene, it, wo_t, uv2, wl)
+        merge(mat_type == MAT_METAL, mf_, mwi, mpdf, mok, mspec)
     if MAT_CLEARCOAT in kinds:
         cf, cwi, cpdf, cok, cspec = _clearcoat_sample(scene, it, wo_t, uc,
                                                       uc2, uc3, uv2, wl)
@@ -360,7 +433,8 @@ def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
     # no ported material is dispersive: terminate nothing
     out_wl = terminate_secondary(wl, torch.zeros_like(sampled))
 
-    opaque = (mat_type == MAT_LAMBERT) | (mat_type == MAT_CLEARCOAT)
+    opaque = ((mat_type == MAT_LAMBERT) | (mat_type == MAT_METAL)
+              | (mat_type == MAT_CLEARCOAT))
     side_ok = _geo_sidedness(it, frame, wo_t, wi_t)
     sampled = sampled & (~opaque | side_ok)
     return MaterialSample(f=f, wi_t=wi_t, pdf=pdf, sampled=sampled,
@@ -383,11 +457,15 @@ def evaluate_material(scene, meta, it, frame: Frame, wo_t: V3, wi_t: V3, wl):
     if MAT_LAMBERT in kinds:
         lf, lpdf = _lambert_eval(scene, it, wo_t, wi_t, wl)
         merge(mat_type == MAT_LAMBERT, lf, lpdf)
+    if MAT_METAL in kinds:
+        mf_, mpdf = _metal_eval(scene, it, wo_t, wi_t, wl)
+        merge(mat_type == MAT_METAL, mf_, mpdf)
     if MAT_CLEARCOAT in kinds:
         cf, cpdf = _clearcoat_eval(scene, it, wo_t, wi_t, wl)
         merge(mat_type == MAT_CLEARCOAT, cf, cpdf)
 
-    opaque = (mat_type == MAT_LAMBERT) | (mat_type == MAT_CLEARCOAT)
+    opaque = ((mat_type == MAT_LAMBERT) | (mat_type == MAT_METAL)
+              | (mat_type == MAT_CLEARCOAT))
     keep = ~opaque | _geo_sidedness(it, frame, wo_t, wi_t)
     return smap(lambda x: torch.where(keep, x, 0.0), f), torch.where(keep, pdf, 0.0)
 
@@ -416,3 +494,8 @@ def emitted_radiance(scene, meta, it, wl) -> S4:
     le = emission_spectral(scene, meta, it.mat_id, it.uv, wl)
     is_emissive = _mat_type(scene, it) == MAT_EMISSIVE
     return smap(lambda x: torch.where(is_emissive, x, 0.0), le)
+
+
+def sample_albedo(scene, meta, it, wl) -> S4:
+    """Base-color reflectance at the hit, for the albedo AOV."""
+    return _albedo_spectrum(scene, it, wl)

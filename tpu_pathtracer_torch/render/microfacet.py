@@ -1,7 +1,8 @@
 """Trowbridge-Reitz (GGX) microfacet functions on (R,) components.
 
 Counterpart of ``tpu_pathtracer/render/microfacet.py`` (the parts the
-ported materials use: D, Lambda, G1, G2, the VNDF and its pdf, reflect).
+ported materials use: D, Lambda, G1, G2, the VNDF and its pdf, reflect,
+and the conductor Fresnel term).
 Directions are V3 in a local shading frame with +Z the normal.
 """
 from __future__ import annotations
@@ -10,7 +11,7 @@ import math
 
 import torch
 
-from ..utils.vec import V2, V3, cross3, dot3, normalize3, sel
+from ..utils.vec import S4, V2, V3, cross3, dot3, normalize3, sel
 
 
 def _cos2_theta(w: V3):
@@ -99,3 +100,45 @@ def reflect(wo: V3, n: V3) -> V3:
 
 def same_hemisphere(a: V3, b: V3):
     return a.z * b.z > 0.0
+
+
+def _fresnel_complex_lane(ci, er, ei):
+    """(R,) conductor Fresnel for one lane, in explicit real/imaginary
+    arithmetic (term for term that of the JAX package)."""
+    sin2_i = 1.0 - ci * ci
+
+    # sin2_t = sin2_i / eta^2 in complex arithmetic, eta_c = er + i ei
+    e2r = er * er - ei * ei
+    e2i = 2.0 * er * ei
+    den = torch.clamp(e2r * e2r + e2i * e2i, min=1e-20)
+    s2t_r = sin2_i * e2r / den
+    s2t_i = -sin2_i * e2i / den
+
+    # cos_t = sqrt(1 - sin2_t)
+    wr = 1.0 - s2t_r
+    wi_ = -s2t_i
+    mag = torch.sqrt(wr * wr + wi_ * wi_)
+    ang = torch.atan2(wi_, wr) * 0.5
+    sq = torch.sqrt(mag)
+    ctr = sq * torch.cos(ang)
+    cti = sq * torch.sin(ang)
+
+    def cdiv(ar, ai, br, bi):
+        d = torch.clamp(br * br + bi * bi, min=1e-20)
+        return (ar * br + ai * bi) / d, (ai * br - ar * bi) / d
+
+    # r_parl = (eta*ci - cos_t) / (eta*ci + cos_t)
+    pr, pi = cdiv(er * ci - ctr, ei * ci - cti, er * ci + ctr, ei * ci + cti)
+    # r_perp = (ci - eta*cos_t) / (ci + eta*cos_t)
+    ect_r = er * ctr - ei * cti
+    ect_i = er * cti + ei * ctr
+    sr, si = cdiv(ci - ect_r, -ect_i, ci + ect_r, ect_i)
+
+    return 0.5 * ((pr * pr + pi * pi) + (sr * sr + si * si))
+
+
+def fresnel_complex(cos_i, eta: S4, k: S4) -> S4:
+    """Spectral conductor Fresnel with complex IOR eta + i k."""
+    ci = torch.clamp(cos_i, 0.0, 1.0)
+    return S4(*(_fresnel_complex_lane(ci, er, ei)
+                for er, ei in zip(eta.lanes, k.lanes)))

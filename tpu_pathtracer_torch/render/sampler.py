@@ -1,4 +1,5 @@
-"""Z-order Sobol sampler, bit-exact with ``tpu_pathtracer/render/sampler.py``.
+"""The Z-order Sobol and the random (threefry) samplers, bit-exact with
+``tpu_pathtracer/render/sampler.py``.
 
 Every draw is a pure function of (pixel, sample index, dimension).  The
 JAX package computes in uint32; PyTorch has no unsigned 32-bit arithmetic,
@@ -192,10 +193,81 @@ class ZSobolSampler:
         return V2(u, v)
 
 
+# ---------------------------------------------------------------------------
+# Random sampler: threefry-2x32 keyed on (seed, dim, sample, pixel)
+# ---------------------------------------------------------------------------
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block function (20 rounds) on [0, 2^32) int64
+    values: key (k0, k1), counter (x0, x1) -> two 32-bit words."""
+    def rotl(v, r):
+        return ((v << r) & M32) | (v >> (32 - r))
+
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = x0 ^ rotl(x1, r)
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+def _bits_to_unit_float(bits):
+    """32 random bits -> float32 in [0, 1): the top 23 bits become the
+    mantissa of a float in [1, 2), minus 1."""
+    word = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return word.view(torch.float32) - 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomSampler:
+    """Counter-based uniform sampler over (R,) lanes.
+
+    The key starts as (0, seed) and folds in the dimension, the sample
+    index and the pixel's Morton code, each fold being one threefry block
+    with the counter (0, value); a draw is the XOR of the two output words
+    of one more block with the counter (0, j), j the draw's position
+    (0 for a 1-D draw, 0 and 1 for a 2-D one)."""
+    seed: int
+    spp: int
+    resolution: tuple  # (w, h); unused, kept for parity with ZSobolSampler
+
+    def _keys(self, pixel_xy, sample_idx, dim):
+        m = morton2(pixel_xy[:, 0], pixel_xy[:, 1])
+        zero = torch.zeros_like(m)
+        k0, k1 = zero + ((self.seed >> 32) & M32), zero + (self.seed & M32)
+        for v in (dim, sample_idx, m):
+            v = torch.broadcast_to(
+                torch.as_tensor(v, device=m.device).to(torch.int64), m.shape)
+            k0, k1 = _threefry2x32(k0, k1, zero, v & M32)
+        return k0, k1
+
+    @staticmethod
+    def _draw(k0, k1, j: int):
+        zero = torch.zeros_like(k0)
+        b0, b1 = _threefry2x32(k0, k1, zero, zero + j)
+        return _bits_to_unit_float(b0 ^ b1)
+
+    def get_1d(self, pixel_xy, sample_idx, dim):
+        """pixel_xy: (R, 2) integer pixel coords; sample_idx, dim: scalars
+        or (R,) integers.  Returns (R,) float32 in [0, 1)."""
+        return self._draw(*self._keys(pixel_xy, sample_idx, dim), 0)
+
+    def get_2d(self, pixel_xy, sample_idx, dim):
+        from ..utils.vec import V2
+        k0, k1 = self._keys(pixel_xy, sample_idx, dim)
+        return V2(self._draw(k0, k1, 0), self._draw(k0, k1, 1))
+
+
 def make_sampler(kind: str, seed: int, spp: int, resolution):
     if kind == "sobol":
         return ZSobolSampler(seed=seed, spp=spp, resolution=tuple(resolution))
     if kind == "random":
-        raise NotImplementedError(
-            "the random (threefry) sampler is not ported yet; use 'sobol'")
+        return RandomSampler(seed=seed, spp=spp, resolution=tuple(resolution))
     raise ValueError(f"unknown sampler {kind!r}")

@@ -1,8 +1,8 @@
 """SceneBuilder: host-side scene description -> SceneData of tensors.
 
 Counterpart of ``tpu_pathtracer/scene/builder.py`` for the materials and
-lights of the ported slice: Lambert, Clearcoat and Emissive materials
-(constant colors, dense emission spectra) and the area lights that
+lights ported so far: Lambert, Metal, Clearcoat and Emissive
+materials (constant parameters, dense emission spectra) and the area lights that
 emissive meshes make.  Anything else raises ``NotImplementedError``.
 
 ``build(camera_position)`` bakes all meshes into one triangle soup in
@@ -24,7 +24,7 @@ from .bvh import build_bvh
 from .mesh import Mesh
 from ..ops.trace import pack_bvh
 from .types import (LIGHT_AREA, MAT_CLEARCOAT, MAT_EMISSIVE, MAT_LAMBERT,
-                    LightTable, MaterialTable, SceneData, SceneMeta)
+                    MAT_METAL, LightTable, MaterialTable, SceneData, SceneMeta)
 
 RGB = Tuple[float, float, float]
 
@@ -33,6 +33,19 @@ RGB = Tuple[float, float, float]
 class Lambert:
     """Diffuse material (constant albedo)."""
     albedo: RGB = (0.8, 0.8, 0.8)
+
+
+@dataclasses.dataclass
+class Metal:
+    """Conductor with measured complex IOR (constant roughness).
+
+    kind: gold | silver | copper | aluminum | brass."""
+    kind: str = "gold"
+    roughness: float = 0.1
+
+
+_METAL_KINDS = {"gold": "au", "silver": "ag", "copper": "cu",
+                "aluminum": "al", "brass": "cuzn"}
 
 
 @dataclasses.dataclass
@@ -64,7 +77,7 @@ class SceneBuilder:
         self._meshes: List[Tuple[Mesh, int]] = []
 
     def add_material(self, desc) -> int:
-        if not isinstance(desc, (Lambert, Clearcoat, Emissive)):
+        if not isinstance(desc, (Lambert, Metal, Clearcoat, Emissive)):
             raise NotImplementedError(
                 f"material {type(desc).__name__} is not ported yet")
         self._materials.append(desc)
@@ -130,6 +143,12 @@ class SceneBuilder:
             if isinstance(d, Lambert):
                 mt["mat_type"][i] = MAT_LAMBERT
                 mt["base_coeff"][i] = self._rgb_coeff(d.albedo)
+            elif isinstance(d, Metal):
+                mt["mat_type"][i] = MAT_METAL
+                eta, k = cie.metal_eta_k(_METAL_KINDS[d.kind])
+                mt["eta_row"][i] = bank_row(eta)
+                mt["k_row"][i] = bank_row(k)
+                mt["roughness"][i] = d.roughness
             elif isinstance(d, Clearcoat):
                 mt["mat_type"][i] = MAT_CLEARCOAT
                 mt["base_coeff"][i] = self._rgb_coeff(d.base_color)

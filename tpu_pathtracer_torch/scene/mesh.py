@@ -1,8 +1,8 @@
 """Triangle meshes for the ported scenes (host-side numpy).
 
-Counterpart of the parts of ``tpu_pathtracer/scene/mesh.py`` that scene 17
-needs: ``Mesh``, ``quad``, the procedural ``dragon`` and the tangent
-generation.  The JAX package also loads scanned OBJ assets when they are
+Counterpart of the parts of ``tpu_pathtracer/scene/mesh.py`` that the
+ported scenes need: ``Mesh``, ``quad``, ``uv_sphere``, the procedural
+``bunny`` and ``dragon``, and the tangent generation.  The JAX package also loads scanned OBJ assets when they are
 present on disk; the port builds the procedural stand-ins only.
 """
 from __future__ import annotations
@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Mesh", "quad", "dragon"]
+__all__ = ["Mesh", "quad", "uv_sphere", "bunny", "dragon"]
 
 
 @dataclasses.dataclass
@@ -93,6 +93,67 @@ def quad(p00, p10, p11, p01, uv_scale: float = 1.0) -> Mesh:
     uvs = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32) * uv_scale
     indices = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
     return _finalize(p, normals, uvs, indices)
+
+
+def uv_sphere(radius: float = 1.0, n_theta: int = 32, n_phi: int = 64,
+              center=(0.0, 0.0, 0.0)) -> Mesh:
+    """Lat-long sphere with spherical UVs and exact normals."""
+    th = np.linspace(0.0, np.pi, n_theta + 1)
+    ph = np.linspace(0.0, 2.0 * np.pi, n_phi + 1)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    x = np.sin(tt) * np.cos(pp)
+    y = np.cos(tt)
+    z = np.sin(tt) * np.sin(pp)
+    pos = np.stack([x, y, z], -1).reshape(-1, 3)
+    normals = pos.copy()
+    pos = pos * radius + np.asarray(center)
+    uvs = np.stack([pp / (2 * np.pi), 1.0 - tt / np.pi], -1).reshape(-1, 2)
+
+    cols = n_phi + 1
+    a = np.arange(n_theta)[:, None] * cols + np.arange(n_phi)[None, :]
+    b, c, dd = a + 1, a + cols, a + cols + 1
+    # per cell (i, j): triangles (a, c, b) then (b, c, d), in (i, j) order
+    idx = np.stack([np.stack([a, c, b], -1), np.stack([b, c, dd], -1)],
+                   axis=2).reshape(-1, 3)
+    return _finalize(pos, normals, uvs, idx)
+
+
+def _smooth_mesh(pos, indices, iters: int = 2):
+    """Simple Laplacian smoothing used by the procedural bunny."""
+    for _ in range(iters):
+        acc = np.zeros_like(pos)
+        cnt = np.zeros(len(pos))
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            np.add.at(acc, indices[:, a], pos[indices[:, b]])
+            np.add.at(cnt, indices[:, a], 1.0)
+            np.add.at(acc, indices[:, b], pos[indices[:, a]])
+            np.add.at(cnt, indices[:, b], 1.0)
+        pos = 0.5 * pos + 0.5 * acc / np.maximum(cnt[:, None], 1.0)
+    return pos
+
+
+def bunny(scale: float = 1.0, subdiv: int = 48) -> Mesh:
+    """Procedural 'bunny': a unit sphere displaced by a few fixed
+    low-frequency bumps (head, ears, tail), 4 * subdiv^2 triangles."""
+    m = uv_sphere(1.0, subdiv, subdiv * 2)
+    p = m.positions.copy()
+    n = m.normals
+
+    def bump(center, sharp, amp):
+        c = np.asarray(center, np.float32)
+        c = c / np.linalg.norm(c)
+        d = (n @ c).clip(-1, 1)
+        return amp * np.exp(sharp * (d - 1.0))
+
+    disp = (0.25 * bump([0.0, 0.8, 0.6], 6.0, 1.0)       # head
+            + 0.45 * bump([0.25, 1.0, 0.35], 40.0, 1.0)  # ear 1
+            + 0.45 * bump([-0.25, 1.0, 0.35], 40.0, 1.0) # ear 2
+            + 0.18 * bump([0.0, -0.2, -1.0], 3.0, 1.0)   # tail-ish
+            - 0.10 * bump([0.0, -1.0, 0.0], 2.0, 1.0))   # flatten base
+    p = p * (1.0 + disp[:, None])
+    p[:, 1] *= 1.05
+    p = _smooth_mesh(p, m.indices, 1) * (0.55 * scale)
+    return _finalize(p, None, m.uvs, m.indices)
 
 
 def dragon(scale: float = 1.0, n_u: int = 256, n_v: int = 24) -> Mesh:

@@ -30,7 +30,8 @@ MAT_NAMES = {
     MAT_EMISSIVE: "emissive",
 }
 # the material kinds this port renders
-PORTED_MAT_KINDS = frozenset((MAT_LAMBERT, MAT_CLEARCOAT, MAT_EMISSIVE))
+PORTED_MAT_KINDS = frozenset((MAT_LAMBERT, MAT_METAL, MAT_CLEARCOAT,
+                              MAT_EMISSIVE))
 
 # light kind tags
 LIGHT_AREA = 0
@@ -146,7 +147,7 @@ def check_ported(meta: SceneMeta) -> None:
         names = sorted(MAT_NAMES[k] for k in missing)
         raise NotImplementedError(
             f"materials {names} are not ported yet (ported: lambert, "
-            "clearcoat, emissive)")
+            "metal, clearcoat, emissive)")
     if any(t != LIGHT_AREA for t in meta.light_types):
         raise NotImplementedError(
             "delta and environment lights are not ported yet (area lights only)")

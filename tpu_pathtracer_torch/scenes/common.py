@@ -59,6 +59,14 @@ def add_cornell_box(sb: SceneBuilder, white=(0.8, 0.8, 0.8),
         quad([-e, y, e], [e, y, e], [e, y, -e], [-e, y, -e], m_light)
 
 
+def bunny_on_floor(scale: float = 1.6):
+    """Procedural bunny resting on the floor at the box centre."""
+    m = mesh.bunny()
+    lo = m.positions.min(0)
+    t = translate(0.0, -lo[1] * scale, 0.0) @ scale_translate(scale, 0, 0, 0)
+    return m, t
+
+
 def dragon_on_floor(scale: float = 1.4):
     m = mesh.dragon()
     lo = m.positions.min(0)

@@ -1,4 +1,5 @@
-"""The CIE data the ported path needs: 1931 CMFs and the D65 illuminant.
+"""The spectral data the ported path needs: the CIE 1931 CMFs, the D65
+illuminant and the measured complex IOR of the metal presets.
 
 Counterpart of the matching parts of ``tpu_pathtracer/spectrum/cie.py``;
 every function returns a dense (470,) float64 numpy array.
@@ -9,6 +10,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from . import measured_data as _md
 from .cie_cmf_data import CIE_X_1NM, CIE_Y_1NM, CIE_Z_1NM
 from .grid import DENSE_LAMBDA, bake_piecewise, inner_product
 
@@ -66,3 +68,30 @@ _D65 = np.array([
 def illum_d6500() -> np.ndarray:
     """CIE D65 from the standard anchor table (normalized)."""
     return _readonly(_normalize_illum(bake_piecewise(_D65_LAMBDA, _D65)))
+
+
+# metal presets -> (eta, k) table names in measured_data
+_METAL_TABLES = {
+    "au": ("AU_ETA", "AU_K"),
+    "ag": ("AG_ETA", "AG_K"),
+    "cu": ("CU_ETA", "CU_K"),
+    "al": ("AL_ETA", "AL_K"),
+    "cuzn": ("CU_ZN_ETA", "CU_ZN_K"),
+}
+
+METALS = tuple(_METAL_TABLES)
+
+
+def _bake_interleaved(flat) -> np.ndarray:
+    """Bake an interleaved (lam0, v0, lam1, v1, ...) table onto the dense
+    grid."""
+    arr = np.asarray(flat, dtype=np.float64)
+    return bake_piecewise(arr[0::2], arr[1::2])
+
+
+@lru_cache(maxsize=None)
+def metal_eta_k(name: str):
+    """(eta_dense, k_dense) of a metal preset from the measured tables."""
+    eta_name, k_name = _METAL_TABLES[name]
+    return (_readonly(_bake_interleaved(getattr(_md, eta_name))),
+            _readonly(_bake_interleaved(getattr(_md, k_name))))
