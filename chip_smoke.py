@@ -9,16 +9,30 @@ line per phase; any failed check raises and the script exits non-zero.
   kernels  scene 17 at 1024x1024 (table_res 64): the closest-hit and any-hit
            kernels, fast (K1, K2) and precise (K3, K2p), against their plain
            PyTorch versions on the card, on camera rays of the first tile and
-           on the continuation and NEE shadow rays of a wavefront step
-           (262,144 lanes); the fast kernels on the rays of a fast step, the
-           precise ones on the rays of a ``precise=True`` step.
-           Gates: hit/miss and triangle id identical on >= 99.99 % of the
-           active rays; on agreeing hits t, b1, b2 within 1e-6 of the plain
-           version relative to max(|value|, 1); how many differ is printed.
-           Times: CUDA events, median of 10 launches (plain version: median
-           of 3).  The bound is the larger of the operations of one counted
-           launch at the fp32 peak and its bytes (rays, results, one read of
-           the tables) at the memory rate.
+           on the continuation and NEE shadow rays of wavefront steps 2 and
+           (closest hit only) 6 and 12, whose rays are incoherent, and 24
+           and 32, where the tile runs out of samples and most lanes, then
+           nearly all, are dead (262,144 lanes each), and on the first
+           65,536 lanes of step 2 (the launch of a 256x256 film); the fast
+           kernels on the rays of a fast step, the precise ones on the rays
+           of a ``precise=True`` step.
+           Gates, closest hit (K1, K3): hit/miss, triangle id, t, b1 and b2
+           equal to the plain version's on every ray, bit for bit.  Any hit
+           (K2, K2p): identical on >= 99.99 % of the active rays.
+           Times: ``ms`` is device time (20 launches queued behind a spin
+           kernel, CUDA events around the batch: no host time in it);
+           ``call_ms`` is what the reports before this design called ms,
+           CUDA events around one wrapper call (median of 10), most of
+           which is the host getting to the launch; the plain version is
+           the median of 3 calls.  ``prev_ms`` is the binary closest-hit
+           walk the wide kernels replaced (``closest_hit_v1``,
+           ``closest_hit_precise_v1``), device time taken in turns with the
+           kernel's on every closest-hit ray set but the camera's; which is
+           faster is printed, not gated.
+           The bound is the larger of the operations of one counted launch
+           at the fp32 peak and its bytes (rays, results, one read of the
+           tables) at the memory rate.  The counters also give the largest
+           node-visit and triangle-test count of any one ray.
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render.  Checks: K1 and K2 launch counts equal the
@@ -57,11 +71,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # fp32 operations per unit of traversal work, counted in the kernel
-# source: a node visit is two slab tests (6 sub, 6 mul, 12 min/max, 1 mul,
-# 3 compares each) plus the near/far compare; a fast triangle test is 33
-# mul/add for the transform, a negate and a divide for t, 4 mul/add for u
-# and v, 1 add and 5 compares
+# source: a binary node visit is two slab tests (6 sub, 6 mul, 12 min/max,
+# 1 mul, 3 compares each) plus the near/far compare, a wide one four slab
+# tests, four clamps and the five compares of the sorting network; a fast
+# triangle test is 33 mul/add for the transform, a negate and a divide for
+# t, 4 mul/add for u and v, 1 add and 5 compares
 OPS_PER_NODE_VISIT = 53
+OPS_PER_WIDE_VISIT = 4 * 26 + 4 + 5
 OPS_PER_TRI_TEST = 45
 # a precise triangle test: translate, shear and scale three vertices (24),
 # six Dekker splits (4 each) and six error-free products (9 each) combined
@@ -73,26 +89,36 @@ OPS_PER_PRECISE_TRI_TEST = 134
 OPS_PER_PRECISE_RAY_SETUP = 11
 
 GATE_AGREE = 0.9999
-GATE_REL = 1e-6
 GATE_RMSE = 0.01
 
 SOURCE = "tpu_pathtracer_torch/csrc/trace_kernels.cu"
-# kernel -> (triangle table of BVHArrays, is closest hit, ops per triangle
-# test, ops per ray, the TPU kernel it replaces)
+# kernel -> (tables of BVHArrays it reads, the one its plain version takes,
+# is closest hit, ops per triangle test, ops per ray, the TPU kernel it
+# replaces)
 KERNELS = {
-    "closest_hit": ("tri_m12", True, OPS_PER_TRI_TEST, 0,
+    "closest_hit": (("nodes_w", "tri_m12"), "tri_m12", True,
+                    OPS_PER_TRI_TEST, 0,
                     "tpu_pathtracer/ops/pallas_trace.py:261"),
-    "any_hit": ("tri_m12", False, OPS_PER_TRI_TEST, 0,
+    "any_hit": (("nodes_f", "nodes_i", "tri_m12"), "tri_m12", False,
+                OPS_PER_TRI_TEST, 0,
                 "tpu_pathtracer/ops/pallas_trace.py:388"),
-    "closest_hit_precise": ("tri9", True, OPS_PER_PRECISE_TRI_TEST,
+    "closest_hit_precise": (("nodes_w", "tri9p"), "tri9", True,
+                            OPS_PER_PRECISE_TRI_TEST,
                             OPS_PER_PRECISE_RAY_SETUP,
                             "tpu_pathtracer/ops/pallas_trace.py:311"),
-    "any_hit_precise": ("tri9", False, OPS_PER_PRECISE_TRI_TEST,
-                        OPS_PER_PRECISE_RAY_SETUP,
+    "any_hit_precise": (("nodes_f", "nodes_i", "tri9"), "tri9", False,
+                        OPS_PER_PRECISE_TRI_TEST, OPS_PER_PRECISE_RAY_SETUP,
                         "tpu_pathtracer/ops/pallas_trace.py:411"),
 }
 FAST = ("closest_hit", "any_hit")
 PRECISE = ("closest_hit_precise", "any_hit_precise")
+# the binary closest-hit yardsticks: timed here, launched by no render
+V1 = ("closest_hit_v1", "closest_hit_precise_v1")
+# wavefront steps whose closest-hit rays are checked and timed: 2 coherent,
+# 6 and 12 incoherent (dead lanes are regenerated while samples are left),
+# 24 and 32 with the dead lanes of a tile that runs out of samples
+CLOSEST_STEPS = (2, 6, 12, 24, 32)
+SMALL_LAUNCH = 65536    # lanes of a 256x256 film's launch
 
 
 def emit(phase: str, **fields):
@@ -123,32 +149,61 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def rel_err(a, b):
-    return (a - b).abs() / torch.clamp(b.abs(), min=1.0)
+def device_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()`` in ms: ``reps`` calls queued behind a
+    spin kernel (``torch.cuda._sleep``, a private helper of torch), so that
+    every launch is already waiting when the card gets to it, timed by CUDA
+    events around the batch.  (Events around a single call measure the
+    host: the card reaches the first event at once and then waits for
+    Python to get to the launch.)"""
+    fn()
+    torch.cuda.synchronize()
+    spin_cycles = 4_000_000
+    while True:
+        started = torch.cuda.Event()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        started.record()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_in_time = not started.query()     # the spin still runs
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return a.elapsed_time(b) / reps
+        spin_cycles *= 2
 
 
-def record_two_steps(integ, cuda_trace, make_sampler, scene, meta, cam, cfg,
-                     px, tile):
+def record_step_rays(cuda_trace, integ, scene, meta, cam, cfg,
+                     n_steps: int) -> dict:
     """The ray tensors the integrator hands each kernel wrapper in the first
-    two wavefront steps of a tile: {kernel name: [rays of step 1, step 2]}."""
+    ``n_steps`` wavefront steps of the first tile:
+    {wrapper name: [rays of step 1, step 2, ...]}."""
+    from tpu_pathtracer_torch.render.sampler import make_sampler
+
     recorded = {k: [] for k in KERNELS}
-    real = {k: getattr(cuda_trace, k) for k in recorded}
+    real = {k: getattr(cuda_trace, k) for k in KERNELS}
 
     def recorder(name):
         def f(*args, **kw):
-            recorded[name].append(args[4].clone())
+            recorded[name].append(args[-1].clone())   # rays come last
             return real[name](*args, **kw)
         return f
 
-    for k in recorded:
+    dev = scene.device
+    tile = integ.tile_lanes(cfg)
+    px = integ._pixel_grid(cfg.width, cfg.height, dev)[:tile]
+    for k in KERNELS:
         setattr(cuda_trace, k, recorder(k))
     try:
         sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
                                (cfg.width, cfg.height))
         table = integ._spectral_table(scene)
         state = integ._wavefront_init(
-            tile, 0, torch.zeros((tile, 3), device=px.device))
-        for _ in range(2):
+            tile, 0, torch.zeros((tile, 3), device=dev))
+        for _ in range(n_steps):
             state = integ._wavefront_step(scene, meta, cam, cfg, sampler, px,
                                           cfg.spp, state, table)
         torch.cuda.synchronize()
@@ -158,13 +213,22 @@ def record_two_steps(integ, cuda_trace, make_sampler, scene, meta, cam, cfg,
     return recorded
 
 
-def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
+def kernel_args(bvh, name):
+    """What the wrapper ``name`` takes before the rays."""
+    if KERNELS[name][2]:
+        return (bvh,)
+    return (bvh.nodes_f, bvh.nodes_i, getattr(bvh, KERNELS[name][1]),
+            bvh.stack_depth)
+
+
+def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set, prev_sets=()):
     """Hold one kernel against its plain version on each ray set, then time
-    both and compute the bound on ``timed_set``.  Returns the kernel's row
-    of the final "kernels" line (without its launches)."""
-    table_name, closest, ops_per_test, ops_per_ray, _ = KERNELS[name]
-    tris = getattr(bvh, table_name)
-    args = (bvh.nodes_f, bvh.nodes_i, tris, bvh.stack_depth)
+    both and compute the bound on ``timed_set``; on each of ``prev_sets``
+    time the kernel and its binary predecessor in turns.  Returns the
+    kernel's row of the final "kernels" line (without its launches)."""
+    tables, plain_table, closest, ops_per_test, ops_per_ray, _ = KERNELS[name]
+    tris = getattr(bvh, plain_table)
+    args = kernel_args(bvh, name)
     kern = getattr(cuda_trace, name)
     plain = getattr(cuda_trace, name + "_plain")
     max_abs = 0.0
@@ -174,24 +238,23 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
         ref = plain(tris, rays)
         torch.cuda.synchronize()
         if closest:
+            # a conservative cull gives the brute-force answers whatever the
+            # visit order: every output equal on every ray, bit for bit
             t, tri, b1, b2, hit = got
             rt, rtri, rb1, rb2, rhit = ref
             same = (hit == rhit) & (tri == rtri)
             agree = float(same[active].float().mean())
-            both = same & hit
             pairs = ((t, rt), (b1, rb1), (b2, rb2))
-            errs = [float(rel_err(x, y)[both].max()) if both.any() else 0.0
-                    for x, y in pairs]
-            abs_err = max(float((x - y)[both].abs().max())
-                          if both.any() else 0.0 for x, y in pairs)
-            ok = agree >= GATE_AGREE and max(errs) <= GATE_REL
+            abs_err = max(float((x - y)[same].abs().max())
+                          if same.any() else 0.0 for x, y in pairs)
             detail = dict(
-                agree=agree, rel_err_t_b1_b2=errs, hits=int(hit.sum()),
+                agree=agree, hits=int(hit.sum()),
                 hit_only_kernel=int((hit & ~rhit).sum()),
                 hit_only_plain=int((rhit & ~hit).sum()),
                 tri_differs=int((hit & rhit & (tri != rtri)).sum()),
-                values_differ=int(sum(((x != y) & both).sum()
-                                      for x, y in pairs)))
+                values_differ=int(sum((x != y).sum() for x, y in pairs)))
+            ok = (agree == 1.0 and bool(same.all())
+                  and detail["values_differ"] == 0)
         else:
             agree = float((got == ref)[active].float().mean())
             abs_err = float((got != ref).float().max())
@@ -206,17 +269,18 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {set_name}")
     rays = ray_sets[timed_set]
-    ms = cuda_ms(lambda: kern(*args, rays), 10)
+    ms = device_ms(lambda: kern(*args, rays), 20)
+    call_ms = cuda_ms(lambda: kern(*args, rays), 10)
     plain_ms = cuda_ms(lambda: plain(tris, rays), 3)
-    counters = torch.zeros(2, dtype=torch.int64, device=rays.device)
+    counters = torch.zeros(4 if closest else 2, dtype=torch.int64,
+                           device=rays.device)
     kern(*args, rays, counters=counters)
     torch.cuda.synchronize()
-    visits, tests = (int(v) for v in counters.tolist())
+    visits, tests, *maxima = (int(v) for v in counters.tolist())
     n = rays.shape[1]
-    ops = (visits * OPS_PER_NODE_VISIT + tests * ops_per_test
-           + n * ops_per_ray)
-    table_bytes = 4 * (bvh.nodes_f.numel() + bvh.nodes_i.numel()
-                       + tris.numel())
+    ops = (visits * (OPS_PER_WIDE_VISIT if closest else OPS_PER_NODE_VISIT)
+           + tests * ops_per_test + n * ops_per_ray)
+    table_bytes = 4 * sum(getattr(bvh, f).numel() for f in tables)
     out_bytes_per_ray = 4 + 4 + 4 + 4 + 1 if closest else 1
     nbytes = n * (7 * 4 + out_bytes_per_ray) + table_bytes
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
@@ -226,7 +290,36 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
                max_abs_err=max_abs)
     emit("kernels", kernel=name, timed_rays=timed_set, rays=n,
          node_visits=visits, tri_tests=tests, ops=ops, bytes=nbytes, **row,
-         library_ms=None)
+         call_ms=call_ms, library_ms=None)
+    if closest:
+        emit("kernels", kernel=name, timed_rays=timed_set,
+             max_node_visits_of_a_ray=maxima[0],
+             max_tri_tests_of_a_ray=maxima[1],
+             **cuda_trace.closest_hit_launch_info(n, "precise" in name))
+    prev = getattr(cuda_trace, name + "_v1", None)
+    for set_name in prev_sets:
+        rays = ray_sets[set_name]
+        counters = torch.zeros(4, dtype=torch.int64, device=rays.device)
+        got = prev(bvh, rays, counters=counters)
+        ref = kern(*args, rays)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"{name}_v1 differs from {name} on "
+                                 f"{set_name}")
+        times = {"prev": [], "new": []}
+        for which in ("prev", "new", "new", "prev"):
+            fn = prev if which == "prev" else kern
+            a = (bvh,) if which == "prev" else args
+            times[which].append(device_ms(lambda: fn(*a, rays), 20))
+        pv, pt, pmv, pmt = (int(v) for v in counters.tolist())
+        row_prev = dict(ms=statistics.mean(times["new"]),
+                        prev_ms=statistics.mean(times["prev"]))
+        emit("kernels", kernel=name, timed_rays=set_name, rays=rays.shape[1],
+             live=int((rays[6] > 0.0).sum()), **row_prev,
+             prev_over_new=row_prev["prev_ms"] / row_prev["ms"],
+             prev_node_visits=pv, prev_tri_tests=pt,
+             prev_max_node_visits_of_a_ray=pmv,
+             prev_max_tri_tests_of_a_ray=pmt)
     return row
 
 
@@ -247,7 +340,7 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
     b.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {k: cuda_trace.LAUNCHES[k] for k in KERNELS}
+    launches = {k: cuda_trace.LAUNCHES[k] for k in (*KERNELS, *V1)}
     render_ms = a.elapsed_time(b)
     nonfinite = int((~torch.isfinite(img)).sum())
     linear = tm_mod.invert(eotf_mod.decode(img, cfg.eotf), cfg.tone_map)
@@ -262,7 +355,7 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
         if launches[k] != stats.n_steps:
             raise AssertionError(f"{phase}: {k} launched {launches[k]} times "
                                  f"in {stats.n_steps} wavefront steps")
-    for k in forbid:
+    for k in (*forbid, *V1):
         if launches[k] != 0:
             raise AssertionError(f"{phase}: {k} launched {launches[k]} times, "
                                  "expected none")
@@ -282,7 +375,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from tpu_pathtracer_torch.ops import cuda_trace
     from tpu_pathtracer_torch.render import integrator as integ
-    from tpu_pathtracer_torch.render.sampler import make_sampler
     from tpu_pathtracer_torch.scenes import load_scene
     from tpu_pathtracer_torch.color import eotf as eotf_mod
     from tpu_pathtracer_torch.color import tone_map as tm_mod
@@ -310,27 +402,33 @@ def main() -> int:
     scene, meta, cam = load_scene(17, W, H, table_res=64, device=dev)
     cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16)
     cfg_precise = dataclasses.replace(cfg, precise=True)
-    tile = integ.tile_lanes(cfg)
-    px = integ._pixel_grid(W, H, dev)[:tile]
-    rec_fast = record_two_steps(integ, cuda_trace, make_sampler, scene, meta,
-                                cam, cfg, px, tile)
-    rec_precise = record_two_steps(integ, cuda_trace, make_sampler, scene,
-                                   meta, cam, cfg_precise, px, tile)
+    n_recorded = max(CLOSEST_STEPS)
+    rec_fast = record_step_rays(cuda_trace, integ, scene, meta, cam, cfg,
+                                n_recorded)
+    rec_precise = record_step_rays(cuda_trace, integ, scene, meta, cam,
+                                   cfg_precise, n_recorded)
     for names, rec, other in ((FAST, rec_fast, PRECISE),
                               (PRECISE, rec_precise, FAST)):
-        if any(len(rec[k]) != 2 for k in names) or any(rec[k] for k in other):
+        if (any(len(rec[k]) != n_recorded for k in names)
+                or any(rec[k] for k in other)):
             raise AssertionError("a wavefront step did not launch exactly "
                                  f"its own kernels: "
                                  f"{ {k: len(v) for k, v in rec.items()} }")
     kernel_rows = {}
-    for name, (_, closest, *_rest) in KERNELS.items():
+    for name, (_, _, closest, *_rest) in KERNELS.items():
         rec = rec_precise if name in PRECISE else rec_fast
-        sets = ({"camera": rec[name][0], "step2": rec[name][1]} if closest
-                else {"shadow_step1": rec[name][0],
-                      "shadow_step2": rec[name][1]})
-        kernel_rows[name] = check_kernel(
-            cuda_trace, scene.bvh, name, sets,
-            "step2" if closest else "shadow_step2")
+        if closest:
+            sets = {"camera": rec[name][0]}
+            sets.update((f"step{k}", rec[name][k - 1]) for k in CLOSEST_STEPS)
+            sets[f"step2_first_{SMALL_LAUNCH}"] = \
+                rec[name][1][:, :SMALL_LAUNCH].contiguous()
+            kernel_rows[name] = check_kernel(
+                cuda_trace, scene.bvh, name, sets, "step2",
+                prev_sets=[k for k in sets if k != "camera"])
+        else:
+            sets = {"shadow_step1": rec[name][0], "shadow_step2": rec[name][1]}
+            kernel_rows[name] = check_kernel(cuda_trace, scene.bvh, name,
+                                             sets, "shadow_step2")
     emit("kernels", precise_over_fast=dict(
         closest=kernel_rows["closest_hit_precise"]["ms"]
         / kernel_rows["closest_hit"]["ms"],
@@ -382,7 +480,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,
-             replaces=KERNELS[name][4], launches=launches[name],
+             replaces=KERNELS[name][5], launches=launches[name],
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)

@@ -164,5 +164,4 @@ def test_precise_and_foreign_device_raise(dragon):
     assert occ.shape == (4,) and not occ.any()
     rays = ttrace.pack_rays(_v3(o), _v3(d), 1.0).to("meta")
     with pytest.raises(ValueError):
-        cuda_trace.closest_hit(tarrs.nodes_f, tarrs.nodes_i, tarrs.tri_m12,
-                               tarrs.stack_depth, rays)
+        cuda_trace.closest_hit(tarrs, rays)

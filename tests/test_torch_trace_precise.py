@@ -221,7 +221,8 @@ def test_precise_wrappers_reject_foreign_device(dragon):
     _, tarrs = dragon
     o, d = _rays(4, 11)
     rays = ttrace.pack_rays(_v3(o), _v3(d), 1.0).to("meta")
-    for fn in (cuda_trace.closest_hit_precise, cuda_trace.any_hit_precise):
-        with pytest.raises(ValueError):
-            fn(tarrs.nodes_f, tarrs.nodes_i, tarrs.tri9, tarrs.stack_depth,
-               rays)
+    with pytest.raises(ValueError):
+        cuda_trace.closest_hit_precise(tarrs, rays)
+    with pytest.raises(ValueError):
+        cuda_trace.any_hit_precise(tarrs.nodes_f, tarrs.nodes_i, tarrs.tri9,
+                                   tarrs.stack_depth, rays)

@@ -66,13 +66,11 @@ def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
             "textures, environment maps and instanced groups are not "
             "ported yet")
     b = arrays["bvh"]
-    bvh = BVHArrays(
-        nodes_f=_t(np.asarray(b["nodes_f"], np.float32)),
-        nodes_i=_t(np.asarray(b["nodes_i"], np.int32)),
-        tri9=_t(np.asarray(b["tri9"], np.float32)),
-        tri_m12=_t(np.asarray(b["tri_m12"], np.float32)[:len(b["tri9"])]),
-        stack_depth=int(np.asarray(b["stack_hint"]).shape[0]),
-    )
+    bvh = BVHArrays.from_binary(
+        np.array(b["nodes_f"], np.float32), np.array(b["nodes_i"], np.int32),
+        np.array(b["tri9"], np.float32),
+        np.array(np.asarray(b["tri_m12"], np.float32)[:len(b["tri9"])]),
+        stack_depth=int(np.asarray(b["stack_hint"]).shape[0]))
     data = SceneData(
         bvh=bvh,
         tri_attr=_t(arrays["tri_attr"]),

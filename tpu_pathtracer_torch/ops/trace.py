@@ -2,7 +2,9 @@
 
 Counterpart of ``tpu_pathtracer/ops/trace.py`` for the main triangle soup.
 On a CUDA device the queries run the hand-written kernels of
-``ops/cuda_trace.py`` (a one-ray-per-thread walk of the flat BVH); on the
+``ops/cuda_trace.py`` (the closest-hit kernels walk the 4-wide tree of
+``widen_bvh``, a warp's lanes sharing the work of its rays; the any-hit
+kernels walk the binary tree, one thread a ray); on the
 CPU they run those kernels' plain PyTorch versions.  The JAX package's
 TPU-only machinery (block culling, coherence sort, chunking past
 MAX_DENSE_TRIS, the custom-vjp detachment) has no counterpart here.
@@ -38,22 +40,130 @@ class BVHArrays:
                             the ray in triangle coordinates gives the plane hit
                             t = -o_w / d_w and barycentrics (u, v) of (p1, p2)
     stack_depth: traversal stack slots the tree needs (depth + 2)
+    nodes_w: (N4, 32) f32 -- the same tree, 4 wide, one 128-byte row per
+                            node (``widen_bvh``); read by the closest-hit
+                            kernels
+    tri9p:   (T, 12) f32 -- tri9's floats, one padded 16-byte group per
+                            axis (``pad_tri9``); read by the precise
+                            closest-hit kernel
+    wide_depth: levels of the 4-wide tree
     """
     nodes_f: torch.Tensor
     nodes_i: torch.Tensor
     tri9: torch.Tensor
     tri_m12: torch.Tensor
     stack_depth: int
+    nodes_w: torch.Tensor
+    tri9p: torch.Tensor
+    wide_depth: int
 
     def to(self, device) -> "BVHArrays":
         return dataclasses.replace(
             self, nodes_f=self.nodes_f.to(device),
             nodes_i=self.nodes_i.to(device), tri9=self.tri9.to(device),
-            tri_m12=self.tri_m12.to(device))
+            tri_m12=self.tri_m12.to(device),
+            nodes_w=self.nodes_w.to(device), tri9p=self.tri9p.to(device))
+
+    @classmethod
+    def from_binary(cls, nodes_f, nodes_i, tri9, tri_m12,
+                    stack_depth: int) -> "BVHArrays":
+        """From the numpy arrays of the binary tree; derives the wide rows
+        and the padded vertex rows on the host."""
+        nodes_w, wide_depth = widen_bvh(nodes_f, nodes_i)
+        return cls(nodes_f=torch.from_numpy(nodes_f),
+                   nodes_i=torch.from_numpy(nodes_i),
+                   tri9=torch.from_numpy(tri9),
+                   tri_m12=torch.from_numpy(tri_m12),
+                   stack_depth=stack_depth,
+                   nodes_w=torch.from_numpy(nodes_w),
+                   tri9p=torch.from_numpy(pad_tri9(tri9)),
+                   wide_depth=wide_depth)
 
 
 def _leaf_ref(start: int, count: int) -> int:
     return -(start * 8 + count) - 1
+
+
+WIDE = 4            # children of a wide node
+WIDE_ROW = 32       # floats in a wide row: 128 bytes, one cache line
+
+
+def widen_bvh(nodes_f: np.ndarray, nodes_i: np.ndarray):
+    """Collapse the binary tree of ``pack_bvh`` into 4-wide nodes.
+
+    Returns (nodes_w, wide_depth).  nodes_w is (N4, 32) float32, one row
+    per wide node, in breadth-first order (a parent's row comes before its
+    children's; row 0 is the root):
+
+      [lo_x(4) lo_y(4) lo_z(4) hi_x(4) hi_y(4) hi_z(4) ref(4) pad(4)]
+
+    with one column per child.  A child box holds the binary node's floats
+    unchanged.  ref is an int32 stored bit for bit in the float row: >= 0
+    the row of a wide node, < 0 a leaf with the payload of ``nodes_i``
+    (v = -(ref+1): start = v >> 3, count = v & 7).  An unused slot is an
+    inverted box (lo = +inf, hi = -inf, which no ray enters) with the ref
+    of an empty leaf.  A wide node takes a binary node's two children and,
+    while it has a free slot and an internal child, replaces the internal
+    child of the largest surface area by that child's own two children, so
+    a wide node stands for one to three binary nodes.  wide_depth is the
+    number of levels of the wide tree (1 for a root with leaves only)."""
+    nodes_f = np.asarray(nodes_f, np.float32)
+    nodes_i = np.asarray(nodes_i, np.int32)
+
+    def children(b):
+        return [(nodes_f[b, 0:6], int(nodes_i[b, 0])),
+                (nodes_f[b, 6:12], int(nodes_i[b, 1]))]
+
+    def area(box):
+        d = np.maximum(box[3:6].astype(np.float64) - box[0:3], 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    empty_box = np.asarray([np.inf] * 3 + [-np.inf] * 3, np.float32)
+    boxes, refs = [], []
+    queue = [(0, 1)]                  # (binary node id, level), row order
+    wide_depth = 1
+    head = 0
+    while head < len(queue):
+        b, level = queue[head]
+        head += 1
+        wide_depth = max(wide_depth, level)
+        slots = children(b)
+        while len(slots) < WIDE:
+            internal = [k for k, (_, ref) in enumerate(slots) if ref >= 0]
+            if not internal:
+                break
+            k = max(internal, key=lambda j: area(slots[j][0]))
+            slots[k:k + 1] = children(slots[k][1])
+        row_box = np.tile(empty_box, (WIDE, 1))
+        row_ref = np.full(WIDE, _leaf_ref(0, 0), np.int32)
+        for k, (box, ref) in enumerate(slots):
+            row_box[k] = box
+            if ref >= 0:
+                row_ref[k] = len(queue)
+                queue.append((ref, level + 1))
+            else:
+                row_ref[k] = ref
+        boxes.append(row_box)
+        refs.append(row_ref)
+
+    n4 = len(boxes)
+    nodes_w = np.zeros((n4, WIDE_ROW), np.float32)
+    # (N4, child, 6) -> (N4, 6, child): one group of four floats per bound
+    nodes_w[:, 0:24] = np.stack(boxes).transpose(0, 2, 1).reshape(n4, 24)
+    nodes_w[:, 24:28] = np.stack(refs).view(np.float32)
+    return nodes_w, wide_depth
+
+
+def pad_tri9(tri9: np.ndarray) -> np.ndarray:
+    """(T, 9) vertex rows [p0 p1 p2] -> (T, 12) rows
+    [x0 x1 x2 0 | y0 y1 y2 0 | z0 z1 z2 0]: the same floats, one 16-byte
+    group per axis, so that the precise kernel loads the three axes in its
+    sheared order as three aligned vector loads."""
+    tri9 = np.asarray(tri9, np.float32)
+    t = len(tri9)
+    out = np.zeros((t, 3, 4), np.float32)
+    out[:, :, 0:3] = tri9.reshape(t, 3, 3).transpose(0, 2, 1)
+    return out.reshape(t, 12)
 
 
 def pack_bvh(fb, P: np.ndarray) -> BVHArrays:
@@ -113,13 +223,9 @@ def pack_bvh(fb, P: np.ndarray) -> BVHArrays:
     M4 = np.concatenate([Minv, boff[:, :, None]], axis=2)
     tri_m12 = M4.astype(np.float32).reshape(t, 12)
 
-    return BVHArrays(
-        nodes_f=torch.from_numpy(nodes_f),
-        nodes_i=torch.from_numpy(nodes_i),
-        tri9=torch.from_numpy(np.ascontiguousarray(P.reshape(t, 9))),
-        tri_m12=torch.from_numpy(np.ascontiguousarray(tri_m12)),
-        stack_depth=depth + 2,
-    )
+    return BVHArrays.from_binary(
+        nodes_f, nodes_i, np.ascontiguousarray(P.reshape(t, 9)),
+        np.ascontiguousarray(tri_m12), stack_depth=depth + 2)
 
 
 class Hit(NamedTuple):
@@ -147,13 +253,9 @@ def intersect(bvh: BVHArrays, ray_o, ray_d, t_max=BIG_T, active=None,
     """Closest-hit query; ray_o/ray_d are V3 of (R,).  Inactive rays report
     a miss."""
     rays = pack_rays(ray_o, ray_d, t_max, active)
-    if precise:
-        out = cuda_trace.closest_hit_precise(
-            bvh.nodes_f, bvh.nodes_i, bvh.tri9, bvh.stack_depth, rays)
-    else:
-        out = cuda_trace.closest_hit(
-            bvh.nodes_f, bvh.nodes_i, bvh.tri_m12, bvh.stack_depth, rays)
-    return Hit(*out)
+    kernel = cuda_trace.closest_hit_precise if precise \
+        else cuda_trace.closest_hit
+    return Hit(*kernel(bvh, rays))
 
 
 def intersect_p(bvh: BVHArrays, ray_o, ray_d, t_max, active=None,
