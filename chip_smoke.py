@@ -8,31 +8,37 @@ line per phase; any failed check raises and the script exits non-zero.
            prints each kernel's registers and stack frame (ptxas -v)
   kernels  scene 17 at 1024x1024 (table_res 64): the closest-hit and any-hit
            kernels, fast (K1, K2) and precise (K3, K2p), against their plain
-           PyTorch versions on the card, on camera rays of the first tile and
-           on the continuation and NEE shadow rays of wavefront steps 2 and
-           (closest hit only) 6 and 12, whose rays are incoherent, and 24
-           and 32, where the tile runs out of samples and most lanes, then
-           nearly all, are dead (262,144 lanes each), and on the first
-           65,536 lanes of step 2 (the launch of a 256x256 film); the fast
-           kernels on the rays of a fast step, the precise ones on the rays
-           of a ``precise=True`` step.
-           Gates, closest hit (K1, K3): hit/miss, triangle id, t, b1 and b2
-           equal to the plain version's on every ray, bit for bit.  Any hit
-           (K2, K2p): identical on >= 99.99 % of the active rays.
+           PyTorch versions on the card.  Closest hit: camera rays of the
+           first tile and the continuation rays of wavefront steps 2, 6 and
+           12 (incoherent: dead lanes are regenerated while samples are
+           left) and 24 and 32, where the tile runs out of samples and most
+           lanes, then nearly all, are dead (262,144 lanes each), and the
+           first 65,536 lanes of step 2 (the launch of a 256x256 film).  Any
+           hit: the NEE shadow rays of steps 1, 2, 6, 12, 24 and 32 and the
+           first 65,536 lanes of step 2.  The fast kernels on the rays of a
+           fast step, the precise ones on the rays of a ``precise=True``
+           step.
+           Gates, exact: closest hit (K1, K3) hit/miss, triangle id, t, b1
+           and b2, any hit (K2, K2p) occlusion, equal to the plain version's
+           on every ray, bit for bit.
            Times: ``ms`` is device time (20 launches queued behind a spin
            kernel, CUDA events around the batch: no host time in it);
-           ``call_ms`` is what the reports before this design called ms,
-           CUDA events around one wrapper call (median of 10), most of
-           which is the host getting to the launch; the plain version is
-           the median of 3 calls.  ``prev_ms`` is the binary closest-hit
-           walk the wide kernels replaced (``closest_hit_v1``,
-           ``closest_hit_precise_v1``), device time taken in turns with the
-           kernel's on every closest-hit ray set but the camera's; which is
-           faster is printed, not gated.
+           ``call_ms`` is CUDA events around one wrapper call (median of
+           10), most of which is the host getting to the launch; the plain
+           version is the median of 3 calls.  ``prev_ms`` is the binary
+           walk K2p replaced (``any_hit_precise_v1``), device time taken in
+           turns with K2p's on every K2p ray set, and summed over the
+           shadow rays of every step of the first tile (the launches a
+           quarter of the render makes); which is faster is printed, not
+           gated.  K2 is the binary walk itself; the other kernels are
+           timed on the step-2 sets alone.  (Every any-hit design stage
+           against the binary walk: python3 any_hit_stages.py.)
            The bound is the larger of the operations of one counted launch
-           at the fp32 peak and its bytes (rays, results, one read of the
+           at the fp32 peak and its bytes (the seven floats of a live ray,
+           the t_max of a dead or inactive one, results, one read of the
            tables) at the memory rate.  The counters also give the largest
-           node-visit and triangle-test count of any one ray.
+           node-visit and triangle-test count of any one ray (the longest
+           chain), on every set.
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render.  Checks: K1 and K2 launch counts equal the
@@ -88,7 +94,6 @@ OPS_PER_PRECISE_TRI_TEST = 134
 # the per-ray shear set-up: 3 abs, 3 compares, 3 divides, 2 negates
 OPS_PER_PRECISE_RAY_SETUP = 11
 
-GATE_AGREE = 0.9999
 GATE_RMSE = 0.01
 
 SOURCE = "tpu_pathtracer_torch/csrc/trace_kernels.cu"
@@ -106,18 +111,20 @@ KERNELS = {
                             OPS_PER_PRECISE_TRI_TEST,
                             OPS_PER_PRECISE_RAY_SETUP,
                             "tpu_pathtracer/ops/pallas_trace.py:311"),
-    "any_hit_precise": (("nodes_f", "nodes_i", "tri9"), "tri9", False,
+    "any_hit_precise": (("nodes_w", "tri9p"), "tri9", False,
                         OPS_PER_PRECISE_TRI_TEST, OPS_PER_PRECISE_RAY_SETUP,
                         "tpu_pathtracer/ops/pallas_trace.py:411"),
 }
 FAST = ("closest_hit", "any_hit")
 PRECISE = ("closest_hit_precise", "any_hit_precise")
-# the binary closest-hit yardsticks: timed here, launched by no render
-V1 = ("closest_hit_v1", "closest_hit_precise_v1")
-# wavefront steps whose closest-hit rays are checked and timed: 2 coherent,
-# 6 and 12 incoherent (dead lanes are regenerated while samples are left),
-# 24 and 32 with the dead lanes of a tile that runs out of samples
-CLOSEST_STEPS = (2, 6, 12, 24, 32)
+# the binary walk K2p replaced: timed here, launched by no render
+V1 = ("any_hit_precise_v1",)
+# wavefront steps whose rays are checked and timed: 1 and 2 coherent, 6
+# and 12 incoherent (dead lanes are regenerated while samples are left),
+# 24 and 32 with the dead lanes of a tile that runs out of samples; the
+# closest-hit kernels also on the camera rays (step 1)
+STEPS = (2, 6, 12, 24, 32)
+SHADOW_STEPS = (1, *STEPS)
 SMALL_LAUNCH = 65536    # lanes of a 256x256 film's launch
 
 
@@ -176,10 +183,10 @@ def device_ms(fn, reps: int) -> float:
         spin_cycles *= 2
 
 
-def record_step_rays(cuda_trace, integ, scene, meta, cam, cfg,
-                     n_steps: int) -> dict:
-    """The ray tensors the integrator hands each kernel wrapper in the first
-    ``n_steps`` wavefront steps of the first tile:
+def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg) -> dict:
+    """The ray tensors the integrator hands each kernel wrapper in every
+    wavefront step of the first tile, its steps run as ``render_wavefront``
+    runs them (until the all-done flag, read every ``SYNC_EVERY`` steps):
     {wrapper name: [rays of step 1, step 2, ...]}."""
     from tpu_pathtracer_torch.render.sampler import make_sampler
 
@@ -203,9 +210,13 @@ def record_step_rays(cuda_trace, integ, scene, meta, cam, cfg,
         table = integ._spectral_table(scene)
         state = integ._wavefront_init(
             tile, 0, torch.zeros((tile, 3), device=dev))
-        for _ in range(n_steps):
-            state = integ._wavefront_step(scene, meta, cam, cfg, sampler, px,
-                                          cfg.spp, state, table)
+        while True:
+            for _ in range(integ.SYNC_EVERY):
+                state = integ._wavefront_step(scene, meta, cam, cfg, sampler,
+                                              px, cfg.spp, state, table)
+            done = ~state["tracing"] & (state["sample"] + 1 >= cfg.spp)
+            if bool(done.all()):
+                break
         torch.cuda.synchronize()
     finally:
         for k, fn in real.items():
@@ -213,113 +224,133 @@ def record_step_rays(cuda_trace, integ, scene, meta, cam, cfg,
     return recorded
 
 
-def kernel_args(bvh, name):
-    """What the wrapper ``name`` takes before the rays."""
-    if KERNELS[name][2]:
-        return (bvh,)
-    return (bvh.nodes_f, bvh.nodes_i, getattr(bvh, KERNELS[name][1]),
-            bvh.stack_depth)
-
-
-def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set, prev_sets=()):
+def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
     """Hold one kernel against its plain version on each ray set, then time
-    both and compute the bound on ``timed_set``; on each of ``prev_sets``
-    time the kernel and its binary predecessor in turns.  Returns the
-    kernel's row of the final "kernels" line (without its launches)."""
+    both and compute the bound on ``timed_set``; on each set read the
+    counters and, for a kernel with a binary predecessor ``<name>_v1``
+    (K2p), time the two in turns.  Returns the kernel's row of the final "kernels" line (without
+    its launches)."""
     tables, plain_table, closest, ops_per_test, ops_per_ray, _ = KERNELS[name]
     tris = getattr(bvh, plain_table)
-    args = kernel_args(bvh, name)
     kern = getattr(cuda_trace, name)
     plain = getattr(cuda_trace, name + "_plain")
+    prev = getattr(cuda_trace, name + "_v1", None)
     max_abs = 0.0
     for set_name, rays in ray_sets.items():
         active = rays[6] > 0.0 if closest else rays[6] >= 0.0
-        got = kern(*args, rays)
+        got = kern(bvh, rays)
         ref = plain(tris, rays)
         torch.cuda.synchronize()
+        # a conservative cull gives the brute-force answers whatever the
+        # visit order: every output equal on every ray, bit for bit
         if closest:
-            # a conservative cull gives the brute-force answers whatever the
-            # visit order: every output equal on every ray, bit for bit
             t, tri, b1, b2, hit = got
             rt, rtri, rb1, rb2, rhit = ref
             same = (hit == rhit) & (tri == rtri)
-            agree = float(same[active].float().mean())
             pairs = ((t, rt), (b1, rb1), (b2, rb2))
             abs_err = max(float((x - y)[same].abs().max())
                           if same.any() else 0.0 for x, y in pairs)
             detail = dict(
-                agree=agree, hits=int(hit.sum()),
+                hits=int(hit.sum()),
                 hit_only_kernel=int((hit & ~rhit).sum()),
                 hit_only_plain=int((rhit & ~hit).sum()),
                 tri_differs=int((hit & rhit & (tri != rtri)).sum()),
                 values_differ=int(sum((x != y).sum() for x, y in pairs)))
-            ok = (agree == 1.0 and bool(same.all())
-                  and detail["values_differ"] == 0)
+            ok = bool(same.all()) and detail["values_differ"] == 0
         else:
-            agree = float((got == ref)[active].float().mean())
-            abs_err = float((got != ref).float().max())
-            ok = agree >= GATE_AGREE
-            detail = dict(agree=agree, occluded=int(got.sum()),
+            same = got == ref
+            abs_err = float((~same).float().max())
+            detail = dict(occluded=int(got.sum()),
                           only_kernel=int((got & ~ref).sum()),
                           only_plain=int((ref & ~got).sum()))
+            ok = bool(same.all())
         max_abs = max(max_abs, abs_err)
+        counters = torch.zeros(4, dtype=torch.int64, device=rays.device)
+        kern(bvh, rays, counters=counters)
+        torch.cuda.synchronize()
+        visits, tests, max_visits, max_tests = counters.tolist()
         emit("kernels", kernel=name, rays=set_name, active=int(active.sum()),
-             max_abs_err=abs_err, ok=ok, **detail)
+             agree=float(same[active].float().mean()) if active.any() else 1.0,
+             max_abs_err=abs_err, ok=ok, **detail, node_visits=visits,
+             tri_tests=tests, max_node_visits_of_a_ray=max_visits,
+             max_tri_tests_of_a_ray=max_tests)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {set_name}")
+        if prev is None:
+            continue
+        # the binary walk it replaced, timed in turns with it
+        c_prev = torch.zeros(4, dtype=torch.int64, device=rays.device)
+        if not torch.equal(prev(bvh, rays, counters=c_prev), got):
+            raise AssertionError(f"{name}_v1 differs from {name} on "
+                                 f"{set_name}")
+        times = {prev: [], kern: []}
+        for fn in (prev, kern, kern, prev):
+            times[fn].append(device_ms(lambda: fn(bvh, rays), 20))
+        pv, pt, pmv, pmt = c_prev.tolist()
+        row_prev = dict(ms=statistics.mean(times[kern]),
+                        prev_ms=statistics.mean(times[prev]))
+        emit("kernels", kernel=name, timed_rays=set_name, rays=rays.shape[1],
+             active=int(active.sum()), **row_prev,
+             prev_over_new=row_prev["prev_ms"] / row_prev["ms"],
+             prev_node_visits=pv, prev_tri_tests=pt,
+             prev_max_node_visits_of_a_ray=pmv,
+             prev_max_tri_tests_of_a_ray=pmt)
     rays = ray_sets[timed_set]
-    ms = device_ms(lambda: kern(*args, rays), 20)
-    call_ms = cuda_ms(lambda: kern(*args, rays), 10)
+    live = int((rays[6] > 0.0 if closest else rays[6] >= 0.0).sum())
+    ms = device_ms(lambda: kern(bvh, rays), 20)
+    call_ms = cuda_ms(lambda: kern(bvh, rays), 10)
     plain_ms = cuda_ms(lambda: plain(tris, rays), 3)
-    counters = torch.zeros(4 if closest else 2, dtype=torch.int64,
-                           device=rays.device)
-    kern(*args, rays, counters=counters)
+    counters = torch.zeros(4, dtype=torch.int64, device=rays.device)
+    kern(bvh, rays, counters=counters)
     torch.cuda.synchronize()
-    visits, tests, *maxima = (int(v) for v in counters.tolist())
+    visits, tests, _, _ = counters.tolist()
     n = rays.shape[1]
-    ops = (visits * (OPS_PER_WIDE_VISIT if closest else OPS_PER_NODE_VISIT)
-           + tests * ops_per_test + n * ops_per_ray)
+    ops_per_visit = (OPS_PER_WIDE_VISIT if "nodes_w" in tables
+                     else OPS_PER_NODE_VISIT)
+    ops = visits * ops_per_visit + tests * ops_per_test + live * ops_per_ray
     table_bytes = 4 * sum(getattr(bvh, f).numel() for f in tables)
     out_bytes_per_ray = 4 + 4 + 4 + 4 + 1 if closest else 1
-    nbytes = n * (7 * 4 + out_bytes_per_ray) + table_bytes
+    # a live ray reads its seven floats, a dead or inactive one only its
+    # t_max; every ray writes its result
+    nbytes = (live * 7 * 4 + (n - live) * 4 + n * out_bytes_per_ray
+              + table_bytes)
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                max_abs_err=max_abs)
-    emit("kernels", kernel=name, timed_rays=timed_set, rays=n,
+    emit("kernels", kernel=name, timed_rays=timed_set, rays=n, live=live,
          node_visits=visits, tri_tests=tests, ops=ops, bytes=nbytes, **row,
-         call_ms=call_ms, library_ms=None)
-    if closest:
-        emit("kernels", kernel=name, timed_rays=timed_set,
-             max_node_visits_of_a_ray=maxima[0],
-             max_tri_tests_of_a_ray=maxima[1],
-             **cuda_trace.closest_hit_launch_info(n, "precise" in name))
-    prev = getattr(cuda_trace, name + "_v1", None)
-    for set_name in prev_sets:
-        rays = ray_sets[set_name]
-        counters = torch.zeros(4, dtype=torch.int64, device=rays.device)
-        got = prev(bvh, rays, counters=counters)
-        ref = kern(*args, rays)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-            raise AssertionError(f"{name}_v1 differs from {name} on "
-                                 f"{set_name}")
-        times = {"prev": [], "new": []}
-        for which in ("prev", "new", "new", "prev"):
-            fn = prev if which == "prev" else kern
-            a = (bvh,) if which == "prev" else args
-            times[which].append(device_ms(lambda: fn(*a, rays), 20))
-        pv, pt, pmv, pmt = (int(v) for v in counters.tolist())
-        row_prev = dict(ms=statistics.mean(times["new"]),
-                        prev_ms=statistics.mean(times["prev"]))
-        emit("kernels", kernel=name, timed_rays=set_name, rays=rays.shape[1],
-             live=int((rays[6] > 0.0).sum()), **row_prev,
-             prev_over_new=row_prev["prev_ms"] / row_prev["ms"],
-             prev_node_visits=pv, prev_tri_tests=pt,
-             prev_max_node_visits_of_a_ray=pmv,
-             prev_max_tri_tests_of_a_ray=pmt)
+         call_ms=call_ms, library_ms=None,
+         **cuda_trace.launch_info(name, n))
+    return row
+
+
+def time_over_tile(cuda_trace, bvh, name, step_rays):
+    """``name`` against its binary predecessor ``<name>_v1`` on the rays of
+    every wavefront step of a tile: each step's launch timed in turns with
+    the predecessor's, the device times summed over the tile.  Returns the
+    summary emitted."""
+    kern = getattr(cuda_trace, name)
+    prev = getattr(cuda_trace, name + "_v1")
+    ms, prev_ms = [], []
+    for k, rays in enumerate(step_rays, 1):
+        if not torch.equal(prev(bvh, rays), kern(bvh, rays)):
+            raise AssertionError(f"{name}_v1 differs from {name} on the "
+                                 f"shadow rays of step {k}")
+        times = {prev: [], kern: []}
+        for fn in (prev, kern, kern, prev):
+            times[fn].append(device_ms(lambda: fn(bvh, rays), 20))
+        ms.append(statistics.mean(times[kern]))
+        prev_ms.append(statistics.mean(times[prev]))
+    row = dict(kernel=name, timed_rays="every_shadow_step_of_tile1",
+               launches=len(step_rays), ms_sum=sum(ms),
+               prev_ms_sum=sum(prev_ms), prev_over_new=sum(prev_ms) / sum(ms),
+               steps_new_faster=sum(a < b for a, b in zip(ms, prev_ms)),
+               active=[int((r[6] >= 0.0).sum()) for r in step_rays],
+               ms_per_step=ms, prev_ms_per_step=prev_ms)
+    emit("kernels", **row)
     return row
 
 
@@ -402,14 +433,14 @@ def main() -> int:
     scene, meta, cam = load_scene(17, W, H, table_res=64, device=dev)
     cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16)
     cfg_precise = dataclasses.replace(cfg, precise=True)
-    n_recorded = max(CLOSEST_STEPS)
-    rec_fast = record_step_rays(cuda_trace, integ, scene, meta, cam, cfg,
-                                n_recorded)
-    rec_precise = record_step_rays(cuda_trace, integ, scene, meta, cam,
-                                   cfg_precise, n_recorded)
+    rec_fast = record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg)
+    rec_precise = record_tile_rays(cuda_trace, integ, scene, meta, cam,
+                                   cfg_precise)
     for names, rec, other in ((FAST, rec_fast, PRECISE),
                               (PRECISE, rec_precise, FAST)):
-        if (any(len(rec[k]) != n_recorded for k in names)
+        n_steps = len(rec[names[0]])
+        if (n_steps < max(STEPS)
+                or any(len(rec[k]) != n_steps for k in names)
                 or any(rec[k] for k in other)):
             raise AssertionError("a wavefront step did not launch exactly "
                                  f"its own kernels: "
@@ -417,18 +448,18 @@ def main() -> int:
     kernel_rows = {}
     for name, (_, _, closest, *_rest) in KERNELS.items():
         rec = rec_precise if name in PRECISE else rec_fast
-        if closest:
-            sets = {"camera": rec[name][0]}
-            sets.update((f"step{k}", rec[name][k - 1]) for k in CLOSEST_STEPS)
-            sets[f"step2_first_{SMALL_LAUNCH}"] = \
-                rec[name][1][:, :SMALL_LAUNCH].contiguous()
-            kernel_rows[name] = check_kernel(
-                cuda_trace, scene.bvh, name, sets, "step2",
-                prev_sets=[k for k in sets if k != "camera"])
-        else:
-            sets = {"shadow_step1": rec[name][0], "shadow_step2": rec[name][1]}
-            kernel_rows[name] = check_kernel(cuda_trace, scene.bvh, name,
-                                             sets, "shadow_step2")
+        prefix = "step" if closest else "shadow_step"
+        sets = {"camera": rec[name][0]} if closest else {}
+        sets.update((f"{prefix}{k}", rec[name][k - 1])
+                    for k in (STEPS if closest else SHADOW_STEPS))
+        sets[f"{prefix}2_first_{SMALL_LAUNCH}"] = \
+            rec[name][1][:, :SMALL_LAUNCH].contiguous()
+        kernel_rows[name] = check_kernel(cuda_trace, scene.bvh, name, sets,
+                                         f"{prefix}2")
+    # K2p against the binary walk over the launches of a whole tile
+    time_over_tile(cuda_trace, scene.bvh, "any_hit_precise",
+                   rec_precise["any_hit_precise"])
+    del rec_fast, rec_precise
     emit("kernels", precise_over_fast=dict(
         closest=kernel_rows["closest_hit_precise"]["ms"]
         / kernel_rows["closest_hit"]["ms"],

@@ -58,30 +58,42 @@ def _assert_closest_equal(got, ref):
         assert torch.equal(a, b), what
 
 
+def _assert_counts(counters, rays):
+    """The (4,) counters of one launch: sums of node visits and triangle
+    tests, each at least its per-ray maximum and at most that maximum
+    times the live rays."""
+    n_live = int((rays[6] > 0).sum())
+    n_visits, tests, max_visits, max_tests = counters.tolist()
+    assert 0 < max_visits <= n_visits <= max_visits * n_live
+    assert 0 < max_tests <= tests <= max_tests * n_live
+
+
 def test_closest_hit_kernel_matches_plain(dragon, dev):
     o, d, act, _ = _rays(8192, 0, dev)
     rays = ttrace.pack_rays(o, d, ttrace.BIG_T, act)
     before = cuda_trace.LAUNCHES["closest_hit"]
-    got = cuda_trace.closest_hit(dragon, rays)
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    got = cuda_trace.closest_hit(dragon, rays, counters=counters)
     assert cuda_trace.LAUNCHES["closest_hit"] == before + 1
     ref = cuda_trace.closest_hit_plain(dragon.tri_m12, rays)
     torch.cuda.synchronize()
     _assert_closest_equal(got, ref)
     assert got[4].any() and not got[4][~act].any()
+    _assert_counts(counters, rays)
 
 
 def test_any_hit_kernel_matches_plain_and_counts(dragon, dev):
     o, d, act, tmax = _rays(8192, 1, dev)
     rays = ttrace.pack_rays(o, d, tmax, act)
-    counters = torch.zeros(2, dtype=torch.int64, device=dev)
-    got = cuda_trace.any_hit(dragon.nodes_f, dragon.nodes_i, dragon.tri_m12,
-                             dragon.stack_depth, rays, counters=counters)
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    before = cuda_trace.LAUNCHES["any_hit"]
+    got = cuda_trace.any_hit(dragon, rays, counters=counters)
+    assert cuda_trace.LAUNCHES["any_hit"] == before + 1
     ref = cuda_trace.any_hit_plain(dragon.tri_m12, rays)
     torch.cuda.synchronize()
-    assert (got == ref).float().mean().item() >= 0.9999
-    assert not got[~act].any()
-    visits, tests = counters.tolist()
-    assert visits > 0 and tests > 0
+    assert torch.equal(got, ref)
+    assert got.any() and not got[~act].any()
+    assert min(counters.tolist()) > 0
 
 
 def test_closest_hit_precise_kernel_matches_plain(dragon, dev):
@@ -95,72 +107,86 @@ def test_closest_hit_precise_kernel_matches_plain(dragon, dev):
     torch.cuda.synchronize()
     _assert_closest_equal(got, ref)
     assert got[4].any() and not got[4][~act].any()
-    assert min(counters.tolist()) > 0
+    _assert_counts(counters, rays)
 
 
 @pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
-def test_closest_hit_kernels_match_v1_and_count(dragon, dev, precise):
-    """The wide kernels against the binary walk they replaced, with live,
-    short and dead rays; the (4,) counters hold sums and per-ray maxima."""
+def test_any_hit_kernels_match_v1_and_count(dragon, dev, precise):
+    """K2 (the binary walk) and K2p (the wide team walk) against the plain
+    version and K2p against the binary walk it replaced, with short, long,
+    zero-length and inactive rays; the (4,) counters hold sums and per-ray
+    maxima."""
     o, d, act, tmax = _rays(8192, 5, dev)
-    tmax = torch.where(torch.arange(8192, device=dev) % 3 == 0, tmax,
-                       torch.full_like(tmax, ttrace.BIG_T))
+    k = torch.arange(8192, device=dev)
+    tmax = torch.where(k % 3 == 0, tmax, torch.full_like(tmax, ttrace.BIG_T))
+    tmax = torch.where(k % 97 == 0, torch.zeros_like(tmax), tmax)
     rays = ttrace.pack_rays(o, d, tmax, act)
-    suffix = "_precise" if precise else ""
-    new = getattr(cuda_trace, "closest_hit" + suffix)
-    old = getattr(cuda_trace, "closest_hit" + suffix + "_v1")
-    c_new = torch.zeros(4, dtype=torch.int64, device=dev)
-    c_old = torch.zeros(4, dtype=torch.int64, device=dev)
-    before = cuda_trace.LAUNCHES["closest_hit" + suffix + "_v1"]
-    got = new(dragon, rays, counters=c_new)
-    ref = old(dragon, rays, counters=c_old)
-    assert cuda_trace.LAUNCHES["closest_hit" + suffix + "_v1"] == before + 1
-    torch.cuda.synchronize()
-    _assert_closest_equal(got, ref)
-    n_live = int((rays[6] > 0).sum())
-    for visits, tests, max_visits, max_tests in (c_new.tolist(),
-                                                 c_old.tolist()):
-        assert 0 < max_visits <= visits <= max_visits * n_live
-        assert 0 < max_tests <= tests <= max_tests * n_live
+    name = "any_hit_precise" if precise else "any_hit"
+    plain, table = ((cuda_trace.any_hit_precise_plain, dragon.tri9)
+                    if precise else (cuda_trace.any_hit_plain, dragon.tri_m12))
+    want = plain(table, rays)
+    assert want.any() and not want.all() and not want[tmax == 0].any()
+    names = (name, "any_hit_precise_v1") if precise else (name,)
+    visits = []
+    for kernel in names:
+        c = torch.zeros(4, dtype=torch.int64, device=dev)
+        before = cuda_trace.LAUNCHES[kernel]
+        got = getattr(cuda_trace, kernel)(dragon, rays, counters=c)
+        assert cuda_trace.LAUNCHES[kernel] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kernel
+        _assert_counts(c, rays)
+        visits.append(c[0].item())
     # a wide visit stands for up to three binary ones
-    assert c_new[0] < c_old[0]
-    # at most one block a 128 rays, and no more than the card holds at once
-    info = cuda_trace.closest_hit_launch_info(8192, precise)
+    assert visits == sorted(visits) and len(set(visits)) == len(visits)
+    # the team kernels: at most one block a 128 rays, and no more than the
+    # card holds at once; the binary walk: one block a 128 rays
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
-    assert info["grid"] == min(8192 // 128, sms * info["blocks_per_sm"])
-    assert cuda_trace.closest_hit_launch_info(100, precise)["grid"] == 1
+    team = ("closest_hit_precise", "any_hit_precise") if precise \
+        else ("closest_hit",)
+    for kernel in team:
+        info = cuda_trace.launch_info(kernel, 8192)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+        assert info["grid"] == min(8192 // 128, sms * info["blocks_per_sm"])
+        assert cuda_trace.launch_info(kernel, 100)["grid"] == 1
+    binary = "any_hit_precise_v1" if precise else "any_hit"
+    info = cuda_trace.launch_info(binary, 8192)
+    assert info["registers"] > 0 and info["grid"] == 8192 // 128
 
 
-@pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
+@pytest.mark.parametrize("kernel", ["closest_hit", "closest_hit_precise",
+                                    "any_hit", "any_hit_precise"])
 @pytest.mark.parametrize("n", [1, 31, 33, 129, 4097])
-def test_closest_hit_kernels_small_and_sparse_launches(dragon, dev, precise, n):
+def test_kernels_small_and_sparse_launches(dragon, dev, kernel, n):
     """Launches smaller than a warp or a block, and ones whose lanes are
     mostly dead, as late wavefront steps make them."""
-    o, d, act, _ = _rays(n, 6 + n, dev)
+    o, d, act, tmax = _rays(n, 6 + n, dev)
     sparse = act & (torch.arange(n, device=dev) % 16 == 0)
-    plain, table = ((cuda_trace.closest_hit_precise_plain, dragon.tri9)
-                    if precise else
-                    (cuda_trace.closest_hit_plain, dragon.tri_m12))
-    kern = cuda_trace.closest_hit_precise if precise else cuda_trace.closest_hit
+    kern = getattr(cuda_trace, kernel)
+    plain = getattr(cuda_trace, kernel + "_plain")
+    table = dragon.tri9 if "precise" in kernel else dragon.tri_m12
+    closest = kernel.startswith("closest")
     for active in (torch.ones_like(act), sparse, torch.zeros_like(act)):
-        rays = ttrace.pack_rays(o, d, ttrace.BIG_T, active)
+        rays = ttrace.pack_rays(o, d, ttrace.BIG_T if closest else tmax,
+                                active)
         got = kern(dragon, rays)
         ref = plain(table, rays)
         torch.cuda.synchronize()
-        _assert_closest_equal(got, ref)
+        if closest:
+            _assert_closest_equal(got, ref)
+        else:
+            assert torch.equal(got, ref)
 
 
 def test_any_hit_precise_kernel_matches_plain(dragon, dev):
     o, d, act, tmax = _rays(8192, 4, dev)
     rays = ttrace.pack_rays(o, d, tmax, act)
     before = cuda_trace.LAUNCHES["any_hit_precise"]
-    got = cuda_trace.any_hit_precise(dragon.nodes_f, dragon.nodes_i,
-                                     dragon.tri9, dragon.stack_depth, rays)
+    got = cuda_trace.any_hit_precise(dragon, rays)
     assert cuda_trace.LAUNCHES["any_hit_precise"] == before + 1
     ref = cuda_trace.any_hit_precise_plain(dragon.tri9, rays)
     torch.cuda.synchronize()
-    assert (got == ref).float().mean().item() >= 0.9999
+    assert torch.equal(got, ref)
     assert got.any() and not got[~act].any()
 
 
@@ -182,7 +208,8 @@ def test_wrapper_checks_inputs(dragon, dev):
     o, d, act, _ = _rays(64, 2, dev)
     rays = ttrace.pack_rays(o, d, 1.0, act)
     replace = dataclasses.replace
-    for fn in (cuda_trace.closest_hit, cuda_trace.closest_hit_precise):
+    for fn in (cuda_trace.closest_hit, cuda_trace.closest_hit_precise,
+               cuda_trace.any_hit_precise):
         with pytest.raises(ValueError):      # the wide rows on the CPU
             fn(replace(dragon, nodes_w=dragon.nodes_w.cpu()), rays)
         # contiguous and 16-byte aligned, but not on a 128-byte line
@@ -198,18 +225,16 @@ def test_wrapper_checks_inputs(dragon, dev):
         with pytest.raises(ValueError):      # counters are (4,)
             fn(dragon, rays,
                counters=torch.zeros(2, dtype=torch.int64, device=dev))
-    with pytest.raises(ValueError):          # the precise kernel takes tri9p
-        cuda_trace.closest_hit_precise(replace(dragon, tri9p=dragon.tri9),
-                                       rays)
-    with pytest.raises(ValueError):
-        cuda_trace.closest_hit_v1(replace(dragon, nodes_f=dragon.nodes_f.cpu()),
-                                  rays)
-    with pytest.raises(ValueError):
-        cuda_trace.any_hit(dragon.nodes_f, dragon.nodes_i, dragon.tri_m12,
-                           cuda_trace.MAX_STACK + 1, rays)
-    with pytest.raises(ValueError):
-        cuda_trace.any_hit(dragon.nodes_f, dragon.nodes_i, dragon.tri_m12,
-                           dragon.stack_depth, rays[:, ::2])
-    with pytest.raises(ValueError):          # the precise kernels take tri9
-        cuda_trace.any_hit_precise(dragon.nodes_f, dragon.nodes_i,
-                                   dragon.tri_m12, dragon.stack_depth, rays)
+    for fn in (cuda_trace.closest_hit_precise, cuda_trace.any_hit_precise):
+        with pytest.raises(ValueError):      # the precise kernels take tri9p
+            fn(replace(dragon, tri9p=dragon.tri9), rays)
+    for fn in (cuda_trace.any_hit, cuda_trace.any_hit_precise_v1):
+        with pytest.raises(ValueError):
+            fn(replace(dragon, nodes_f=dragon.nodes_f.cpu()), rays)
+        with pytest.raises(ValueError):
+            fn(replace(dragon, stack_depth=cuda_trace.MAX_STACK + 1), rays)
+        with pytest.raises(ValueError):
+            fn(dragon, rays[:, ::2])
+    with pytest.raises(ValueError):          # the precise yardstick takes tri9
+        cuda_trace.any_hit_precise_v1(replace(dragon, tri9=dragon.tri_m12),
+                                      rays)

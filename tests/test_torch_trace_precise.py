@@ -224,5 +224,4 @@ def test_precise_wrappers_reject_foreign_device(dragon):
     with pytest.raises(ValueError):
         cuda_trace.closest_hit_precise(tarrs, rays)
     with pytest.raises(ValueError):
-        cuda_trace.any_hit_precise(tarrs.nodes_f, tarrs.nodes_i, tarrs.tri9,
-                                   tarrs.stack_depth, rays)
+        cuda_trace.any_hit_precise(tarrs, rays)

@@ -1,13 +1,13 @@
-"""The 4-wide BVH layout the closest-hit kernels read (``widen_bvh``,
+"""The 4-wide BVH layout the traversal kernels read (``widen_bvh``,
 ``pad_tri9``) and a plain walk of it.
 
 (a) Structure of ``nodes_w`` against the binary tree it was collapsed from.
 (b) ``walk_wide_plain`` (the kernels' walk as vectorised PyTorch: their cull
     rule with its padded far distance and slack, their child order, their
-    rule for the better hit) against the brute-force plain versions on
-    seeded numpy rays: hit, triangle id and t, b1, b2 bit for bit, because
-    a conservative cull gives the brute-force answers whatever the visit
-    order.
+    rule for the better hit, or the any-hit kernels' first hit) against the
+    brute-force plain versions on seeded numpy rays: hit, triangle id and
+    t, b1, b2 bit for bit, or occlusion, because a conservative cull gives
+    the brute-force answers whatever the visit order.
 (c) The bridge gives a JAX-built scene the same wide rows as the port's own
     build.
 """
@@ -169,13 +169,22 @@ def _rays(tri, n, seed):
                         dtype=torch.float32)
 
 
+@pytest.mark.parametrize("mode", ["closest", "any"])
 @pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
 @pytest.mark.parametrize("name", ["quad_pair", "uv_sphere", "dragon"])
-def test_wide_walk_equals_brute_force(name, precise):
+def test_wide_walk_equals_brute_force(name, precise, mode):
     tri = MESHES[name]()
     arrs = _pack(tri)
     rays = _rays(tri, 3000, 21)
-    got = cuda_trace.walk_wide_plain(arrs, rays, precise)
+    got = cuda_trace.walk_wide_plain(arrs, rays, precise, mode == "any")
+    if mode == "any":
+        ref = (cuda_trace.any_hit_precise_plain(arrs.tri9, rays) if precise
+               else cuda_trace.any_hit_plain(arrs.tri_m12, rays))
+        # short rays: occlusion differs from a closest hit at t_max = BIG_T
+        assert ((rays[6] > 0.0) & (rays[6] < 3e38) & ref).any()
+        assert ref.any() and not ref.all() and not ref[rays[6] < 0.0].any()
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+        return
     ref = (cuda_trace.closest_hit_precise_plain(arrs.tri9, rays) if precise
            else cuda_trace.closest_hit_plain(arrs.tri_m12, rays))
     hit = ref[4]
@@ -205,23 +214,34 @@ def test_wide_walk_axis_parallel_and_tie():
 
 
 def test_wrappers_take_the_bvh_and_check_the_wide_rows():
-    """On the CPU the closest-hit wrappers and their binary yardsticks run
-    the plain versions; on another device they check ``nodes_w``."""
+    """On the CPU all four wrappers and K2p's binary yardstick take the
+    ``BVHArrays`` and run the plain versions; on another device they
+    raise."""
     tri = MESHES["uv_sphere"]()
     arrs = _pack(tri)
     rays = _rays(tri, 256, 3)
-    ref = cuda_trace.closest_hit_plain(arrs.tri_m12, rays)
-    for fn in (cuda_trace.closest_hit, cuda_trace.closest_hit_v1):
-        for g, r in zip(fn(arrs, rays), ref):
-            assert torch.equal(g, r)
-    ref = cuda_trace.closest_hit_precise_plain(arrs.tri9, rays)
-    for fn in (cuda_trace.closest_hit_precise,
-               cuda_trace.closest_hit_precise_v1):
-        for g, r in zip(fn(arrs, rays), ref):
-            assert torch.equal(g, r)
+    for g, r in zip(cuda_trace.closest_hit(arrs, rays),
+                    cuda_trace.closest_hit_plain(arrs.tri_m12, rays)):
+        assert torch.equal(g, r)
+    for g, r in zip(cuda_trace.closest_hit_precise(arrs, rays),
+                    cuda_trace.closest_hit_precise_plain(arrs.tri9, rays)):
+        assert torch.equal(g, r)
+    ref = cuda_trace.any_hit_plain(arrs.tri_m12, rays)
+    assert ref.any() and not ref.all()
+    assert torch.equal(cuda_trace.any_hit(arrs, rays), ref)
+    ref = cuda_trace.any_hit_precise_plain(arrs.tri9, rays)
+    for fn in (cuda_trace.any_hit_precise, cuda_trace.any_hit_precise_v1):
+        assert torch.equal(fn(arrs, rays), ref)
+    assert not hasattr(cuda_trace, "closest_hit_v1")
+    assert not hasattr(cuda_trace, "any_hit_v1")
     deep = dataclasses.replace(arrs, wide_depth=cuda_trace.WIDE_MAX_STACK)
     assert cuda_trace.wide_stack_slots(deep.wide_depth) \
         > cuda_trace.WIDE_MAX_STACK
+    meta = rays.to("meta")
+    for fn in (cuda_trace.any_hit, cuda_trace.any_hit_precise,
+               cuda_trace.any_hit_precise_v1):
+        with pytest.raises(ValueError):      # neither CPU nor CUDA
+            fn(arrs, meta)
 
 
 def test_bridge_builds_the_same_wide_rows():

@@ -3,19 +3,19 @@
 // shear test (K3, K2p).
 //
 // Replace the TPU kernels of tpu_pathtracer/ops/pallas_trace.py:
-//   closest_hit_team_kernel<false> <- _kernel_closest_fast (with
-//                                 _block_test_fast and the packed-key decode
-//                                 in traverse)
-//   any_hit_kernel<false>      <- _kernel_anyhit (its fast, precise=False form)
-//   closest_hit_team_kernel<true> <- _kernel_closest (with _ray_setup,
-//                                 _block_test and _diff_of_products)
-//   any_hit_kernel<true>       <- _kernel_anyhit (its precise=True form)
+//   team_kernel<false, false> (K1)  <- _kernel_closest_fast (with
+//                                   _block_test_fast and the packed-key
+//                                   decode in traverse)
+//   binary_any_hit_kernel<false> (K2) <- _kernel_anyhit (its fast form)
+//   team_kernel<true, false>  (K3)  <- _kernel_closest (with _ray_setup,
+//                                   _block_test and _diff_of_products)
+//   team_kernel<true, true>   (K2p) <- _kernel_anyhit (its precise=True form)
 //
 // The TPU kernels test every ray of a 64-ray subtile against dense
 // 128-triangle blocks held in VMEM, because TPU gathers run as a scalar
 // loop.  On Hopper a gather is an ordinary load, so the kernels walk a BVH:
-// the any-hit kernels one thread a ray, the closest-hit kernels a warp of
-// lanes that share their rays' work.
+// K1, K3 and K2p a warp of lanes sharing the work of its rays, K2 one
+// thread a ray.
 //
 // What bounds the walk (measured on an H100; the readings are in PERF.md).
 // Per ray the work is small and data-dependent (a handful of node visits
@@ -28,8 +28,10 @@
 // rays takes that long); and the rays of a warp visit nodes, test leaves
 // and end at different times, so a warp of independent threads lasts as
 // long as its longest ray while most of its lanes idle, and the card holds
-// the launch in about two rounds of such warps.  The closest-hit kernels
-// (K1, K3) shorten the chain and fill the lanes:
+// the launch in about two rounds of such warps.  An any-hit ray spreads its
+// warp further: one that meets an occluder ends at once, one that does not
+// visits every box its segment to the light overlaps.  The team kernels
+// (K1, K3, K2p) shorten the chain and fill the lanes:
 //   - 4-wide nodes, one 128-byte line each (nodes_w of ops/trace.py
 //     widen_bvh: [lo_x(4) lo_y(4) lo_z(4) hi_x(4) hi_y(4) hi_z(4) ref(4)
 //     pad(4)], rows in breadth-first order).  A visit makes seven
@@ -50,9 +52,9 @@
 //     a leaf's triangles (at most 4 from build_bvh, MAX_LEAF_SIZE; the
 //     3-bit payload could name 7) are read two at a time before the first
 //     is tested, three 16-byte loads each (K1 tests both in the step, K3
-//     one); the precise kernel reads tri9p ([x0 x1 x2 0 | y0 y1 y2 0 |
-//     z0 z1 z2 0]), whose groups it loads in the order of the ray's axis
-//     permutation, in place of nine scalar loads.
+//     and K2p one); the precise kernels read tri9p ([x0 x1 x2 0 |
+//     y0 y1 y2 0 | z0 z1 z2 0]), whose groups they load in the order of
+//     the ray's axis permutation, in place of nine scalar loads.
 //   - A warp is a team: its lanes run in lockstep, one step of the load
 //     stream a turn.  The warp owns a slice of the rays; when
 //     TEAM_REFILL_MIN lanes are idle they take the slice's next rays, so a
@@ -65,21 +67,45 @@
 //     shuffles), which is also their cull bound; a lane whose part is done
 //     falls idle and the last one stores the result.  Only as many blocks
 //     run as the card holds at once.
+//   - Any hit (K2p) is the same walk with the cull bound fixed at the
+//     ray's t_max and an early out: a lane that finds a hit below t_max
+//     ends its part of the ray and drops its stack, and the lanes on one
+//     ray agree by one ballot (masked by match_any's group) on whether one
+//     of them has a hit, in which case all of them fall idle in the same
+//     turn and one stores true.  A lane that takes a stack entry of an
+//     any-hit ray copies the ray and its derived constants, but no best
+//     hit: a lane with a hit has no stack left to give.  Since the bound
+//     never shrinks, an unoccluded ray visits every box its segment
+//     overlaps whatever the order: the hit children are pushed in slot
+//     order, without the sorting network, and a stack entry is the ref
+//     alone.  A ray with t_max < 0 is inactive and reports false; the walk
+//     treats t_max <= 0 as dead, which gives the same answer, since neither
+//     test can find a hit in (1e-6, 0).
+//   - Most shadow rays are unoccluded and short in steps (a few node
+//     visits to the light), so an any-hit launch is throughput more than
+//     chain: the wide visit's four slab tests and the team's turn cost more
+//     instructions a ray than the binary walk's.  With the fast test's
+//     cheap triangles that loses: K2 stays the binary walk, one thread a
+//     ray, which no stage of the team walk beat on the full shadow sets
+//     (PERF.md has every stage's time).  K2p's precise test reads its
+//     vertices as three aligned vector loads in the team walk and nine
+//     scalar ones in the binary walk, and the team walk wins.
 // No shared memory is used.  Built, measured and removed again because they
 // did not pay on this card (PERF.md has each one's time): the stack in
 // shared memory (it costs occupancy); resident blocks whose threads take
 // ray after ray from a counter; the top rows of the tree in shared memory
 // (a row that many lanes share is one L1 transaction already); and a
 // leaf's four triangles loaded at once (registers, hence occupancy).  Any
-// conservative cull gives the same answers whatever the visit order, and
-// the nearest hit of a ray is the nearest of its parts' nearest hits, so
-// the results are those of the brute-force plain versions bit for bit.
+// conservative cull gives the same answers whatever the visit order, the
+// nearest hit of a ray is the nearest of its parts' nearest hits, and a
+// ray is occluded if one of its parts finds a hit, so the results are
+// those of the brute-force plain versions bit for bit.
 //
-// The any-hit kernels (K2, K2p) keep the binary walk: pop a node ref from a
-// per-thread stack, test both child boxes of an internal node (rows of
-// nodes_f / nodes_i), push the hit children far-first, or test the
-// triangles of an inline leaf.  closest_hit_v1_kernel is the closest-hit
-// form of that walk, kept as the yardstick the wide kernels are timed
+// binary_any_hit_kernel is K2 and, in its precise form, the walk K2p ran
+// before the team walk: one thread a ray pops a node ref from its own
+// stack, tests both child boxes of an internal node (rows of nodes_f /
+// nodes_i), pushes the hit children far-first, or tests the triangles of an
+// inline leaf.  Its precise form is kept as the yardstick K2p is timed
 // against; no render path launches it.
 //
 // Fast hit test (K1, K2; the same arithmetic as the plain PyTorch version in
@@ -110,15 +136,16 @@
 // before the divide, and t = t_scaled / det > 1e-6.  The bound test uses
 // the ray's own t_max, not the shrinking best t, so that the closest hit is
 // the plain version's: the smallest t among the hits, the lower id on an
-// exact tie.  The axis permutation is folded into the load address (K2p:
-// row[3 v + k] of tri9, whose 36-byte rows are not 16-byte aligned, so nine
-// scalar __ldg loads; K3: group k of tri9p).  The box cull keeps the padded
+// exact tie.  The axis permutation is folded into the load address (K3,
+// K2p: group k of tri9p; the binary walk: row[3 v + k] of tri9, whose
+// 36-byte rows are not 16-byte aligned, nine scalar __ldg loads).  The box cull keeps the padded
 // far distance and T_SLACK: the precise t is tight, but a triangle lying in
 // a box face can still lose its box to slab rounding.
 //
-// With `counters` given, each thread adds its node visits and triangle
-// tests to counters[0] and counters[1]; the closest-hit kernels also keep
-// the largest count of any single ray in counters[2] and counters[3].
+// With `counters` given, the node visits and triangle tests of each ray
+// (summed over the lanes that shared it) are added to counters[0] and
+// counters[1], and counters[2] and counters[3] keep the largest count of
+// any single ray.
 // From these a caller computes the least operation count of the call and
 // reads how long the longest chain was.
 #include <cuda_runtime.h>
@@ -281,16 +308,15 @@ __device__ __forceinline__ bool closer(float t, int tri, float best_t,
     return PRECISE ? (best_tri < 0 || lower) : lower;
 }
 
-// Walk the binary BVH for one ray.  ANY: stop at the first hit below t_max.
-// PRECISE: `tris` is tri9 and the hit test is the watertight shear test;
-// else `tris` is tri_m12 and it is the unit-triangle test.
-template <bool ANY, bool PRECISE = false>
-__device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
+// Walk the binary BVH for one ray until its first hit in (1e-6, t_max);
+// returns whether there is one.  PRECISE: `tris` is tri9 and the hit test
+// is the watertight shear test; else `tris` is tri_m12 and it is the
+// unit-triangle test.
+template <bool PRECISE>
+__device__ __forceinline__ bool walk(const float* __restrict__ nodes_f,
                                      const int* __restrict__ nodes_i,
                                      const float* __restrict__ tris,
-                                     int n_tri, const Ray& r, float& best_t,
-                                     int& best_tri, float& best_u,
-                                     float& best_v, unsigned& visits,
+                                     int n_tri, const Ray& r, unsigned& visits,
                                      unsigned& tests) {
     float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
     Shear sh;
@@ -309,7 +335,6 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
                 if (tri >= n_tri) break;
                 ++tests;
                 float t, u, v;
-                bool better;
                 if constexpr (PRECISE) {
                     const float* row = tris + 9 * (size_t)tri;
                     float ax[3], ay[3], az[3];
@@ -319,24 +344,15 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
                         ay[c] = __ldg(row + 3 * c + sh.ky);
                         az[c] = __ldg(row + 3 * c + sh.kz);
                     }
-                    if (!tri_test_precise(ax, ay, az, sh, r.tmax, t, u, v))
-                        continue;
-                    better = ANY || closer<true>(t, tri, best_t, best_tri);
+                    if (tri_test_precise(ax, ay, az, sh, r.tmax, t, u, v))
+                        return true;
                 } else {
                     const float4* row =
                         reinterpret_cast<const float4*>(tris + 12 * (size_t)tri);
-                    if (!tri_test(__ldg(row), __ldg(row + 1), __ldg(row + 2), r,
-                                  t, u, v))
-                        continue;
-                    better = ANY ? t < r.tmax
-                                 : closer<false>(t, tri, best_t, best_tri);
+                    if (tri_test(__ldg(row), __ldg(row + 1), __ldg(row + 2), r,
+                                 t, u, v) && t < r.tmax)
+                        return true;
                 }
-                if (!better) continue;
-                best_tri = tri;
-                if (ANY) return;
-                best_t = t;
-                best_u = u;
-                best_v = v;
             }
             continue;
         }
@@ -344,11 +360,10 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
         const float4* nf = reinterpret_cast<const float4*>(nodes_f + 12 * (size_t)ref);
         float4 a = __ldg(nf), b = __ldg(nf + 1), c = __ldg(nf + 2);
         int2 ch = __ldg(reinterpret_cast<const int2*>(nodes_i) + ref);
-        float t_lim = ANY ? r.tmax : best_t;
         float tl, tr;
         // row layout: [c0.min(3) c0.max(3) c1.min(3) c1.max(3)]
-        bool hl = box_hit(a.x, a.y, a.z, a.w, b.x, b.y, r, ix, iy, iz, t_lim, tl);
-        bool hr = box_hit(b.z, b.w, c.x, c.y, c.z, c.w, r, ix, iy, iz, t_lim, tr);
+        bool hl = box_hit(a.x, a.y, a.z, a.w, b.x, b.y, r, ix, iy, iz, r.tmax, tl);
+        bool hr = box_hit(b.z, b.w, c.x, c.y, c.z, c.w, r, ix, iy, iz, r.tmax, tr);
         if (hl && hr) {
             bool left_near = tl <= tr;
             stack[sp++] = left_near ? ch.y : ch.x;  // far child first
@@ -359,6 +374,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ nodes_f,
             stack[sp++] = ch.y;
         }
     }
+    return false;
 }
 
 // The state of one ray's walk of the wide tree.
@@ -401,20 +417,26 @@ __device__ __forceinline__ void start_ray(Lane& L, const float* __restrict__ ray
     L.cur = 0;  // row 0 is the root (of a one-leaf tree too)
 }
 
+// A stack entry: the ref and its entry distance.  ANY: the ref alone, since
+// an any-hit bound never shrinks and a pop culls nothing.
+template <bool ANY>
 __device__ __forceinline__ void push(Lane& L, u64* stack, int ref, float tn) {
-    stack[L.sp++] = ((u64)__float_as_uint(tn) << 32) | (unsigned)ref;
+    stack[L.sp++] = ANY ? (unsigned)ref
+                        : ((u64)__float_as_uint(tn) << 32) | (unsigned)ref;
 }
 
 // Whether a stack entry's entry distance still passes the cull at `lim`.
+template <bool ANY>
 __device__ __forceinline__ bool entry_passes(u64 e, float lim) {
-    return __uint_as_float((unsigned)(e >> 32)) <= lim * T_SLACK;
+    return ANY || __uint_as_float((unsigned)(e >> 32)) <= lim * T_SLACK;
 }
 
 // The next ref of the lane's stack that still passes the cull, or WIDE_DONE.
+template <bool ANY>
 __device__ __forceinline__ int pop(Lane& L, const u64* stack) {
     while (L.sp > 0) {
         u64 e = stack[--L.sp];
-        if (entry_passes(e, L.lim)) return (int)(unsigned)e;
+        if (entry_passes<ANY>(e, L.lim)) return (int)(unsigned)e;
     }
     return WIDE_DONE;
 }
@@ -443,7 +465,11 @@ __device__ __forceinline__ int pop(Lane& L, const u64* stack) {
 
 // Test the four child boxes of a wide node's row and return the nearest hit
 // child, the others pushed far-first (WIDE_DONE or a popped entry when no
-// child is hit).
+// child is hit).  ANY: the first hit child in slot order, the others pushed
+// unsorted: an unoccluded ray visits every box its segment overlaps
+// whatever the order, and the sorting network costs more than an occluded
+// ray gains from it (measured; PERF.md).
+template <bool ANY>
 __device__ __forceinline__ int visit(Lane& L, float4 lox, float4 loy, float4 loz,
                                      float4 hix, float4 hiy, float4 hiz,
                                      float4 refs, u64* stack) {
@@ -451,18 +477,30 @@ __device__ __forceinline__ int visit(Lane& L, float4 lox, float4 loy, float4 loz
     float t[4];
     int ref[4];
     WIDE_CHILD(0, x) WIDE_CHILD(1, y) WIDE_CHILD(2, z) WIDE_CHILD(3, w)
+    if constexpr (ANY) {
+        int first = WIDE_DONE;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (t[k] < CUDART_INF_F) {
+                if (first == WIDE_DONE) first = ref[k];
+                else push<ANY>(L, stack, ref[k], t[k]);
+            }
+        }
+        return first != WIDE_DONE ? first : pop<ANY>(L, stack);
+    }
     WIDE_ORDER(0, 1) WIDE_ORDER(2, 3) WIDE_ORDER(0, 2) WIDE_ORDER(1, 3)
     WIDE_ORDER(1, 2)
     // the hits now come first, nearest first; far ones go down first
-    if (t[3] < CUDART_INF_F) push(L, stack, ref[3], t[3]);
-    if (t[2] < CUDART_INF_F) push(L, stack, ref[2], t[2]);
-    if (t[1] < CUDART_INF_F) push(L, stack, ref[1], t[1]);
-    return t[0] < CUDART_INF_F ? ref[0] : pop(L, stack);
+    if (t[3] < CUDART_INF_F) push<ANY>(L, stack, ref[3], t[3]);
+    if (t[2] < CUDART_INF_F) push<ANY>(L, stack, ref[2], t[2]);
+    if (t[1] < CUDART_INF_F) push<ANY>(L, stack, ref[1], t[1]);
+    return t[0] < CUDART_INF_F ? ref[0] : pop<ANY>(L, stack);
 }
 
 // Test triangle `tri`, whose row's three groups are a, b, c in the lane's
-// order, and keep it if it is the better hit.
-template <bool PRECISE>
+// order, and keep it if it is the better hit (ANY: if it is a hit below
+// t_max; the precise test bounds t by t_max itself).
+template <bool PRECISE, bool ANY>
 __device__ __forceinline__ void test(Lane& L, int tri, float4 a, float4 b,
                                      float4 c) {
     ++L.tests;
@@ -476,7 +514,9 @@ __device__ __forceinline__ void test(Lane& L, int tri, float4 a, float4 b,
     } else {
         hit = tri_test(a, b, c, L.r, t, u, v);
     }
-    if (hit && closer<PRECISE>(t, tri, L.best_t, L.best_tri)) {
+    if constexpr (ANY) {
+        if (hit && (PRECISE || t < L.r.tmax)) L.best_tri = tri;
+    } else if (hit && closer<PRECISE>(t, tri, L.best_t, L.best_tri)) {
         L.best_tri = tri;
         L.best_t = t;
         L.best_u = u;
@@ -487,6 +527,7 @@ __device__ __forceinline__ void test(Lane& L, int tri, float4 a, float4 b,
 
 // Make `ref` the lane's current ref; a leaf's triangle range is unpacked
 // and an empty leaf skipped.
+template <bool ANY>
 __device__ __forceinline__ void enter(Lane& L, int ref, int n_tri,
                                       const u64* stack) {
     for (;;) {
@@ -496,7 +537,7 @@ __device__ __forceinline__ void enter(Lane& L, int ref, int n_tri,
         L.tri = payload >> 3;
         L.leaf_end = min(L.tri + (payload & 7), n_tri);
         if (L.tri < L.leaf_end) return;
-        ref = pop(L, stack);
+        ref = pop<ANY>(L, stack);
     }
 }
 
@@ -505,8 +546,9 @@ __device__ __forceinline__ void enter(Lane& L, int ref, int n_tri,
 // the leaf's next two triangles), before either computes: a warp whose
 // lanes are at nodes and at leaves then waits for memory once a step, not
 // once for each kind.  `tris` is tri_m12 or, PRECISE, tri9p: three 16-byte
-// groups a row.
-template <bool PRECISE>
+// groups a row.  ANY: a lane that finds an occluder ends its part of the
+// ray and drops its stack.
+template <bool PRECISE, bool ANY>
 __device__ __forceinline__ void step(Lane& L, const float4* nodes_w,
                                      const float4* tris, int n_tri,
                                      u64* stack) {
@@ -526,57 +568,71 @@ __device__ __forceinline__ void step(Lane& L, const float4* nodes_w,
     float4 a3 = p1[o0], a4 = p1[o1], a5 = p1[o2];
     float4 a6 = p0[o6];
     if (at_node) {
-        enter(L, visit(L, a0, a1, a2, a3, a4, a5, a6, stack), n_tri, stack);
+        enter<ANY>(L, visit<ANY>(L, a0, a1, a2, a3, a4, a5, a6, stack), n_tri,
+                   stack);
     } else {
         // two fast tests a step; one precise test, which is four times the
         // arithmetic: a second one for the few lanes that have a second
         // triangle costs the whole warp more than it saves them (measured)
         constexpr int tests_a_step = PRECISE ? 1 : 2;
-        test<PRECISE>(L, L.tri, a0, a1, a2);
-        if (tests_a_step > 1 && L.tri + 1 < L.leaf_end)
-            test<PRECISE>(L, L.tri + 1, a3, a4, a5);
+        test<PRECISE, ANY>(L, L.tri, a0, a1, a2);
+        if (tests_a_step > 1 && L.tri + 1 < L.leaf_end &&
+            !(ANY && L.best_tri >= 0))
+            test<PRECISE, ANY>(L, L.tri + 1, a3, a4, a5);
         L.tri += tests_a_step;
-        if (L.tri >= L.leaf_end) enter(L, pop(L, stack), n_tri, stack);
+        if (ANY && L.best_tri >= 0) {
+            L.cur = WIDE_DONE;
+            L.sp = 0;
+        } else if (L.tri >= L.leaf_end) {
+            enter<ANY>(L, pop<ANY>(L, stack), n_tri, stack);
+        }
     }
 }
 
-__device__ __forceinline__ void store_closest(
-    int i, float best_t, int best_tri, float best_u, float best_v,
-    unsigned visits, unsigned tests, float* __restrict__ t_out,
-    int* __restrict__ tri_out, float* __restrict__ b1_out,
-    float* __restrict__ b2_out, bool* __restrict__ hit_out,
-    u64* __restrict__ counters) {
-    bool hit = best_tri >= 0;
-    t_out[i] = hit ? best_t : 3.0e38f;
-    tri_out[i] = best_tri;
-    b1_out[i] = hit ? best_u : 0.0f;
-    b2_out[i] = hit ? best_v : 0.0f;
+// Store ray L.i's result: occlusion (ANY) or its closest hit.
+template <bool ANY>
+__device__ __forceinline__ void store(const Lane& L, bool hit,
+                                      float* __restrict__ t_out,
+                                      int* __restrict__ tri_out,
+                                      float* __restrict__ b1_out,
+                                      float* __restrict__ b2_out,
+                                      bool* __restrict__ hit_out,
+                                      u64* __restrict__ counters) {
+    const int i = L.i;
+    if constexpr (!ANY) {
+        t_out[i] = hit ? L.best_t : 3.0e38f;
+        tri_out[i] = L.best_tri;
+        b1_out[i] = hit ? L.best_u : 0.0f;
+        b2_out[i] = hit ? L.best_v : 0.0f;
+    }
     hit_out[i] = hit;
-    if (counters != nullptr) {
-        atomicAdd(counters, (u64)visits);
-        atomicAdd(counters + 1, (u64)tests);
-        atomicMax(counters + 2, (u64)visits);
-        atomicMax(counters + 3, (u64)tests);
+    if (counters != nullptr && (L.visits | L.tests)) {
+        atomicAdd(counters, (u64)L.visits);
+        atomicAdd(counters + 1, (u64)L.tests);
+        atomicMax(counters + 2, (u64)L.visits);
+        atomicMax(counters + 3, (u64)L.tests);
     }
 }
 
-// K1 (PRECISE = false, tris = tri_m12) and K3 (PRECISE = true, tris =
-// tri9p): the lanes of a warp run in lockstep, one step a turn, and share
-// the warp's work.  A warp
-// owns a slice of the rays; idle lanes take its next rays while there are
-// any, and after that the top stack entry (the nearest pending subtree) of
-// a lane that has one, with a copy of its ray and of its best hit, so that
-// a long ray is walked by many lanes.  The lanes on one ray agree on the
-// nearest of their hits every turn (which is also their cull bound); a lane
-// whose part is done falls idle, and the last one stores the result.
-template <bool PRECISE>
+// K1 (tris = tri_m12), K3 (PRECISE, tris = tri9p) and, with ANY, K2p: the
+// lanes of a warp run in lockstep, one step a turn, and share the
+// warp's work.  A warp owns a slice of the rays; idle lanes take its next
+// rays while there are any, and after that the top stack entry (the
+// nearest pending subtree) of a lane that has one, with a copy of its ray
+// (and of its best hit), so that a long ray is walked by many lanes.  The
+// lanes on one ray agree every turn: on the nearest of their hits, which
+// is also their cull bound, or (ANY) on whether one of them has found an
+// occluder, which ends the ray for all of them at once.  A lane whose part
+// is done falls idle, and the last one stores the result.  ANY writes only
+// hit_out (occlusion); t_out, tri_out, b1_out and b2_out go unused.
+template <bool PRECISE, bool ANY>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-closest_hit_team_kernel(int n, const float* __restrict__ rays,
-                        const float4* __restrict__ nodes_w,
-                        const float4* __restrict__ tris, int n_tri,
-                        float* __restrict__ t_out, int* __restrict__ tri_out,
-                        float* __restrict__ b1_out, float* __restrict__ b2_out,
-                        bool* __restrict__ hit_out, u64* __restrict__ counters) {
+team_kernel(int n, const float* __restrict__ rays,
+            const float4* __restrict__ nodes_w,
+            const float4* __restrict__ tris, int n_tri,
+            float* __restrict__ t_out, int* __restrict__ tri_out,
+            float* __restrict__ b1_out, float* __restrict__ b2_out,
+            bool* __restrict__ hit_out, u64* __restrict__ counters) {
     const unsigned all = 0xffffffffu;
     const int lane = threadIdx.x & 31;
     const unsigned below = (1u << lane) - 1;
@@ -602,8 +658,8 @@ closest_hit_team_kernel(int n, const float* __restrict__ rays,
             if (L.i < 0 && rank < take) {
                 start_ray<PRECISE>(L, rays, n, next + rank);
                 if (L.cur == WIDE_DONE) {  // a dead ray: a miss, at once
-                    store_closest(L.i, L.best_t, -1, 0.0f, 0.0f, 0, 0, t_out,
-                                  tri_out, b1_out, b2_out, hit_out, counters);
+                    store<ANY>(L, false, t_out, tri_out, b1_out, b2_out, hit_out,
+                               counters);
                     L.i = -1;
                 }
             }
@@ -632,11 +688,17 @@ closest_hit_team_kernel(int n, const float* __restrict__ rays,
             r.dy = __shfl_sync(all, L.r.dy, src);
             r.dz = __shfl_sync(all, L.r.dz, src);
             r.tmax = __shfl_sync(all, L.r.tmax, src);
-            float best_t = __shfl_sync(all, L.best_t, src);
-            float best_u = __shfl_sync(all, L.best_u, src);
-            float best_v = __shfl_sync(all, L.best_v, src);
-            int best_tri = __shfl_sync(all, L.best_tri, src);
-            float lim = __shfl_sync(all, L.lim, src);
+            // a donor of ANY has no hit (a lane that finds one is done), and
+            // its cull bound is the ray's t_max
+            float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f, lim = r.tmax;
+            int best_tri = -1;
+            if constexpr (!ANY) {
+                best_t = __shfl_sync(all, L.best_t, src);
+                best_u = __shfl_sync(all, L.best_u, src);
+                best_v = __shfl_sync(all, L.best_v, src);
+                best_tri = __shfl_sync(all, L.best_tri, src);
+                lim = __shfl_sync(all, L.lim, src);
+            }
             int i = __shfl_sync(all, L.i, src);
             // the ray's derived constants come with it: a shuffle is
             // cheaper than the divisions that made them
@@ -669,42 +731,55 @@ closest_hit_team_kernel(int n, const float* __restrict__ rays,
                 L.i = i;
                 L.sp = 0;
                 L.visits = 0, L.tests = 0;
-                enter(L, entry_passes(entry, lim) ? (int)(unsigned)entry : WIDE_DONE,
-                      n_tri, stack);
+                enter<ANY>(L, entry_passes<ANY>(entry, lim) ? (int)(unsigned)entry
+                                                            : WIDE_DONE,
+                           n_tri, stack);
             }
         }
         if (L.i >= 0 && L.cur != WIDE_DONE)
-            step<PRECISE>(L, nodes_w, tris, n_tri, stack);
+            step<PRECISE, ANY>(L, nodes_w, tris, n_tri, stack);
         bool done = L.i >= 0 && L.cur == WIDE_DONE;
         if (!sharing) {
             if (done) {
-                store_closest(L.i, L.best_t, L.best_tri, L.best_u, L.best_v,
-                              L.visits, L.tests, t_out, tri_out, b1_out,
-                              b2_out, hit_out, counters);
+                store<ANY>(L, L.best_tri >= 0, t_out, tri_out, b1_out, b2_out,
+                           hit_out, counters);
                 L.i = -1;
             }
             continue;
         }
-        // the lanes on one ray agree on the nearest of their hits, the lower
-        // triangle id on a tie
-        const unsigned no_hit = 0x7f800000u;
         unsigned group = __match_any_sync(all, L.i);
-        bool has = L.i >= 0 && L.best_tri >= 0;
-        unsigned key = has ? __float_as_uint(L.best_t) : no_hit;
-        unsigned nearest = __reduce_min_sync(group, key);
-        unsigned tri_key = (has && key == nearest) ? (unsigned)L.best_tri : 0xffffffffu;
-        unsigned lowest = __reduce_min_sync(group, tri_key);
-        unsigned winners = group & __ballot_sync(all, has && key == nearest &&
-                                                          tri_key == lowest);
-        int src = winners ? __ffs(winners) - 1 : lane;
-        float t = __shfl_sync(all, L.best_t, src);
-        float u = __shfl_sync(all, L.best_u, src);
-        float v = __shfl_sync(all, L.best_v, src);
-        int tri = __shfl_sync(all, L.best_tri, src);
-        if (L.i >= 0 && winners) {
-            L.best_t = t, L.best_u = u, L.best_v = v;
-            L.best_tri = tri;
-            L.lim = fminf(L.lim, t);
+        bool hit;
+        if constexpr (ANY) {
+            // the lanes on one ray need only know whether one of them found
+            // an occluder: then the ray is done for all of them
+            hit = (group & __ballot_sync(all, L.i >= 0 && L.best_tri >= 0)) != 0;
+            if (L.i >= 0 && hit) {
+                L.cur = WIDE_DONE;
+                L.sp = 0;
+                done = true;
+            }
+        } else {
+            // the lanes on one ray agree on the nearest of their hits, the
+            // lower triangle id on a tie
+            const unsigned no_hit = 0x7f800000u;
+            bool has = L.i >= 0 && L.best_tri >= 0;
+            unsigned key = has ? __float_as_uint(L.best_t) : no_hit;
+            unsigned nearest = __reduce_min_sync(group, key);
+            unsigned tri_key = (has && key == nearest) ? (unsigned)L.best_tri : 0xffffffffu;
+            unsigned lowest = __reduce_min_sync(group, tri_key);
+            unsigned winners = group & __ballot_sync(all, has && key == nearest &&
+                                                              tri_key == lowest);
+            int src = winners ? __ffs(winners) - 1 : lane;
+            float t = __shfl_sync(all, L.best_t, src);
+            float u = __shfl_sync(all, L.best_u, src);
+            float v = __shfl_sync(all, L.best_v, src);
+            int tri = __shfl_sync(all, L.best_tri, src);
+            if (L.i >= 0 && winners) {
+                L.best_t = t, L.best_u = u, L.best_v = v;
+                L.best_tri = tri;
+                L.lim = fminf(L.lim, t);
+            }
+            hit = L.best_tri >= 0;
         }
         // lanes that are done leave; the last lane on a ray stores it
         unsigned busy = group & ~__ballot_sync(all, done);
@@ -717,95 +792,87 @@ closest_hit_team_kernel(int n, const float* __restrict__ rays,
         }
         if (done) {
             if (lane == keeper)
-                store_closest(L.i, L.best_t, L.best_tri, L.best_u, L.best_v,
-                              L.visits, L.tests, t_out, tri_out, b1_out,
-                              b2_out, hit_out, counters);
+                store<ANY>(L, hit, t_out, tri_out, b1_out, b2_out, hit_out,
+                           counters);
             L.i = -1;
         }
     }
 }
 
-// The binary closest-hit walk the wide kernels replaced (tris = tri_m12 or,
-// PRECISE, tri9): the yardstick of their times, on no render path.
+// K2 (tris = tri_m12) and, PRECISE, the binary walk K2p ran before the team
+// walk (tris = tri9): one thread a ray walks the binary tree (nodes_f,
+// nodes_i).  The precise form is the yardstick of K2p's times, on no render
+// path.
 template <bool PRECISE>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-closest_hit_v1_kernel(int n, const float* __restrict__ rays,
-                      const float* __restrict__ nodes_f,
-                      const int* __restrict__ nodes_i,
-                      const float* __restrict__ tris, int n_tri,
-                      float* __restrict__ t_out, int* __restrict__ tri_out,
-                      float* __restrict__ b1_out, float* __restrict__ b2_out,
-                      bool* __restrict__ hit_out, u64* __restrict__ counters) {
+binary_any_hit_kernel(int n, const float* __restrict__ rays,
+                  const float* __restrict__ nodes_f,
+                  const int* __restrict__ nodes_i,
+                  const float* __restrict__ tris, int n_tri,
+                  bool* __restrict__ occ_out, u64* __restrict__ counters) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     Ray r = load_ray(rays, n, i);
-    float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f;
-    int best_tri = -1;
     unsigned visits = 0, tests = 0;
-    if (r.tmax > 0.0f) {  // t_max <= 0: dead ray
-        walk<false, PRECISE>(nodes_f, nodes_i, tris, n_tri, r, best_t, best_tri,
-                             best_u, best_v, visits, tests);
-    }
-    store_closest(i, best_t, best_tri, best_u, best_v, visits, tests, t_out,
-                  tri_out, b1_out, b2_out, hit_out, counters);
-}
-
-template <bool PRECISE>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-any_hit_kernel(int n, const float* __restrict__ rays,
-               const float* __restrict__ nodes_f,
-               const int* __restrict__ nodes_i,
-               const float* __restrict__ tris, int n_tri,
-               bool* __restrict__ occ_out, u64* __restrict__ counters) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    Ray r = load_ray(rays, n, i);
-    float best_t = r.tmax, best_u = 0.0f, best_v = 0.0f;
-    int best_tri = -1;
-    unsigned visits = 0, tests = 0;
-    if (r.tmax >= 0.0f) {  // t_max < 0: inactive ray, reports false
-        walk<true, PRECISE>(nodes_f, nodes_i, tris, n_tri, r, best_t, best_tri,
-                            best_u, best_v, visits, tests);
-    }
-    occ_out[i] = best_tri >= 0;
-    if (counters != nullptr) {
+    bool occluded = false;
+    if (r.tmax >= 0.0f)  // t_max < 0: inactive ray, reports false
+        occluded = walk<PRECISE>(nodes_f, nodes_i, tris, n_tri, r, visits, tests);
+    occ_out[i] = occluded;
+    if (counters != nullptr && (visits | tests)) {
         atomicAdd(counters, (u64)visits);
         atomicAdd(counters + 1, (u64)tests);
+        atomicMax(counters + 2, (u64)visits);
+        atomicMax(counters + 3, (u64)tests);
     }
 }
 
-static inline dim3 grid_for(int n) {
-    return dim3((unsigned)((n + BLOCK_THREADS - 1) / BLOCK_THREADS));
+static inline int blocks_for(int n) {
+    return (n + BLOCK_THREADS - 1) / BLOCK_THREADS;
 }
 
-// Resident blocks an SM and the grid of a closest-hit launch: as many blocks
-// as the card holds at once, at most one a 128 rays.  Returns a CUDA error
+// Resident blocks an SM of `kernel` and the grid of its launch on n rays:
+// for a team kernel as many blocks as the card holds at once, at most one a
+// 128 rays; for the binary walk one block a 128 rays.  Returns a CUDA error
 // code.
-template <bool PRECISE>
-static int team_grid(int n, int* blocks_per_sm, int* grid) {
+template <typename Kernel>
+static int grid_of(Kernel kernel, bool team, int n, int* blocks_per_sm,
+                   int* grid) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                            BLOCK_THREADS, 0);
     if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, closest_hit_team_kernel<PRECISE>, BLOCK_THREADS, 0);
-    if (err != cudaSuccess) return (int)err;
-    *grid = min((int)grid_for(n).x, sms * *blocks_per_sm);
+    *grid = team ? min(blocks_for(n), sms * *blocks_per_sm) : blocks_for(n);
     return 0;
 }
 
-template <bool PRECISE>
-static int launch_wide(int n, const void* rays, const void* nodes_w,
+// What a launch of `kernel` on n rays occupies: out = [registers a thread,
+// local bytes a thread, resident blocks an SM, grid].  Returns a CUDA error
+// code.
+template <typename Kernel>
+static int occupancy(Kernel kernel, bool team, int n, int* out) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    return grid_of(kernel, team, n, out + 2, out + 3);
+}
+
+template <bool PRECISE, bool ANY>
+static int launch_team(int n, const void* rays, const void* nodes_w,
                        const void* tris, int n_tri, void* t_out, void* tri_out,
                        void* b1_out, void* b2_out, void* hit_out,
                        void* counters, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     int per_sm, blocks;
-    int rc = team_grid<PRECISE>(n, &per_sm, &blocks);
+    int rc = grid_of(team_kernel<PRECISE, ANY>, true, n, &per_sm, &blocks);
     if (rc != 0) return rc;
     if (blocks <= 0) return (int)cudaErrorLaunchOutOfResources;
-    closest_hit_team_kernel<PRECISE>
+    team_kernel<PRECISE, ANY>
         <<<blocks, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
             n, (const float*)rays, (const float4*)nodes_w, (const float4*)tris,
             n_tri, (float*)t_out, (int*)tri_out, (float*)b1_out,
@@ -821,8 +888,9 @@ extern "C" int launch_closest_hit(int n, const void* rays, const void* nodes_w,
                                   void* tri_out, void* b1_out, void* b2_out,
                                   void* hit_out, void* counters,
                                   void* stream) {
-    return launch_wide<false>(n, rays, nodes_w, tri_m12, n_tri, t_out, tri_out,
-                              b1_out, b2_out, hit_out, counters, stream);
+    return launch_team<false, false>(n, rays, nodes_w, tri_m12, n_tri, t_out,
+                                     tri_out, b1_out, b2_out, hit_out,
+                                     counters, stream);
 }
 
 extern "C" int launch_closest_hit_precise(int n, const void* rays,
@@ -832,70 +900,27 @@ extern "C" int launch_closest_hit_precise(int n, const void* rays,
                                           void* b1_out, void* b2_out,
                                           void* hit_out, void* counters,
                                           void* stream) {
-    return launch_wide<true>(n, rays, nodes_w, tri9p, n_tri, t_out, tri_out,
-                             b1_out, b2_out, hit_out, counters, stream);
+    return launch_team<true, false>(n, rays, nodes_w, tri9p, n_tri, t_out,
+                                    tri_out, b1_out, b2_out, hit_out, counters,
+                                    stream);
 }
 
-// What a closest-hit launch of n rays occupies: out = [registers a thread,
-// local bytes a thread, resident blocks an SM, grid].  Returns a CUDA error
-// code.
-extern "C" int closest_hit_launch_info(int precise, int n, int* out) {
-    cudaFuncAttributes attr;
-    cudaError_t err =
-        precise ? cudaFuncGetAttributes(&attr, closest_hit_team_kernel<true>)
-                : cudaFuncGetAttributes(&attr, closest_hit_team_kernel<false>);
-    if (err != cudaSuccess) return (int)err;
-    out[0] = attr.numRegs;
-    out[1] = (int)attr.localSizeBytes;
-    return precise ? team_grid<true>(n, out + 2, out + 3)
-                   : team_grid<false>(n, out + 2, out + 3);
+extern "C" int launch_any_hit_precise(int n, const void* rays,
+                                      const void* nodes_w, const void* tri9p,
+                                      int n_tri, void* occ_out, void* counters,
+                                      void* stream) {
+    return launch_team<true, true>(n, rays, nodes_w, tri9p, n_tri, nullptr,
+                                   nullptr, nullptr, nullptr, occ_out,
+                                   counters, stream);
 }
 
 template <bool PRECISE>
-static int launch_v1(int n, const void* rays, const void* nodes_f,
-                     const void* nodes_i, const void* tris, int n_tri,
-                     void* t_out, void* tri_out, void* b1_out, void* b2_out,
-                     void* hit_out, void* counters, void* stream) {
+static int launch_binary(int n, const void* rays, const void* nodes_f,
+                         const void* nodes_i, const void* tris, int n_tri,
+                         void* occ_out, void* counters, void* stream) {
     if (n > 0) {
-        closest_hit_v1_kernel<PRECISE>
-            <<<grid_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-                n, (const float*)rays, (const float*)nodes_f,
-                (const int*)nodes_i, (const float*)tris, n_tri, (float*)t_out,
-                (int*)tri_out, (float*)b1_out, (float*)b2_out, (bool*)hit_out,
-                (u64*)counters);
-    }
-    return (int)cudaGetLastError();
-}
-
-extern "C" int launch_closest_hit_v1(int n, const void* rays,
-                                     const void* nodes_f, const void* nodes_i,
-                                     const void* tri_m12, int n_tri,
-                                     void* t_out, void* tri_out, void* b1_out,
-                                     void* b2_out, void* hit_out,
-                                     void* counters, void* stream) {
-    return launch_v1<false>(n, rays, nodes_f, nodes_i, tri_m12, n_tri, t_out,
-                            tri_out, b1_out, b2_out, hit_out, counters, stream);
-}
-
-extern "C" int launch_closest_hit_precise_v1(int n, const void* rays,
-                                             const void* nodes_f,
-                                             const void* nodes_i,
-                                             const void* tri9, int n_tri,
-                                             void* t_out, void* tri_out,
-                                             void* b1_out, void* b2_out,
-                                             void* hit_out, void* counters,
-                                             void* stream) {
-    return launch_v1<true>(n, rays, nodes_f, nodes_i, tri9, n_tri, t_out,
-                           tri_out, b1_out, b2_out, hit_out, counters, stream);
-}
-
-template <bool PRECISE>
-static int launch_any(int n, const void* rays, const void* nodes_f,
-                      const void* nodes_i, const void* tris, int n_tri,
-                      void* occ_out, void* counters, void* stream) {
-    if (n > 0) {
-        any_hit_kernel<PRECISE>
-            <<<grid_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+        binary_any_hit_kernel<PRECISE>
+            <<<blocks_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
                 n, (const float*)rays, (const float*)nodes_f,
                 (const int*)nodes_i, (const float*)tris, n_tri, (bool*)occ_out,
                 (u64*)counters);
@@ -907,17 +932,29 @@ extern "C" int launch_any_hit(int n, const void* rays, const void* nodes_f,
                               const void* nodes_i, const void* tri_m12,
                               int n_tri, void* occ_out, void* counters,
                               void* stream) {
-    return launch_any<false>(n, rays, nodes_f, nodes_i, tri_m12, n_tri, occ_out,
-                             counters, stream);
+    return launch_binary<false>(n, rays, nodes_f, nodes_i, tri_m12, n_tri,
+                                occ_out, counters, stream);
 }
 
-extern "C" int launch_any_hit_precise(int n, const void* rays,
-                                      const void* nodes_f, const void* nodes_i,
-                                      const void* tri9, int n_tri,
-                                      void* occ_out, void* counters,
-                                      void* stream) {
-    return launch_any<true>(n, rays, nodes_f, nodes_i, tri9, n_tri, occ_out,
-                            counters, stream);
+extern "C" int launch_any_hit_precise_v1(int n, const void* rays,
+                                         const void* nodes_f,
+                                         const void* nodes_i, const void* tri9,
+                                         int n_tri, void* occ_out,
+                                         void* counters, void* stream) {
+    return launch_binary<true>(n, rays, nodes_f, nodes_i, tri9, n_tri, occ_out,
+                               counters, stream);
+}
+
+// kernel_launch_info's kernels, in the order of cuda_trace.KERNEL_NAMES.
+extern "C" int kernel_launch_info(int kernel, int n, int* out) {
+    switch (kernel) {
+        case 0: return occupancy(team_kernel<false, false>, true, n, out);
+        case 1: return occupancy(team_kernel<true, false>, true, n, out);
+        case 2: return occupancy(binary_any_hit_kernel<false>, false, n, out);
+        case 3: return occupancy(team_kernel<true, true>, true, n, out);
+        case 4: return occupancy(binary_any_hit_kernel<true>, false, n, out);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int trace_kernels_max_stack() { return MAX_STACK; }

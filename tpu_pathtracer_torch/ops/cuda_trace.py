@@ -9,21 +9,19 @@ compiled with ``nvcc`` for ``sm_90a`` on first use, into
 ``build/tpu_pathtracer_torch/`` under a name keyed on a hash of the source
 and flags, and bound with ``ctypes``.
 
-Each wrapper takes the rays as one (7, R) float32 tensor
-[ox oy oz dx dy dz t_max] (``ops.trace.pack_rays``).  The closest-hit
-wrappers take the ``BVHArrays`` and read its 4-wide rows ``nodes_w`` with
-``tri_m12`` (fast) or ``tri9p`` (precise); the any-hit wrappers take the
-binary tree's arrays and the triangle table of their test, ``tri_m12`` or
-``tri9``.  For a CPU tensor a wrapper runs the plain version; for a CUDA
-tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches per kernel name.  ``closest_hit_v1`` and ``closest_hit_precise_v1``
-launch the binary closest-hit walk that the wide kernels replaced: the
-yardstick of their times, called by no render path.
+Each wrapper takes the ``BVHArrays`` and the rays as one (7, R) float32
+tensor [ox oy oz dx dy dz t_max] (``ops.trace.pack_rays``).  K1, K3 and
+K2p read its 4-wide rows ``nodes_w`` with ``tri_m12`` (K1) or ``tri9p``;
+K2 walks the binary tree ``nodes_f``, ``nodes_i`` with ``tri_m12``.  For a
+CPU tensor a wrapper runs the plain version; for a CUDA tensor it launches
+the kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel name.
+``any_hit_precise_v1`` launches the binary walk (``tri9``) that K2p
+replaced: the yardstick of its times, called by no render path.
 
 The plain versions are brute force: every live ray against every
 triangle (chunked over rays), with the same hit-test arithmetic as the
-kernels.  ``walk_wide_plain`` is the wide kernels' walk as vectorised
-PyTorch, for the tests of the wide layout.
+kernels.  ``walk_wide_plain`` is the kernels' walk of the wide tree as
+vectorised PyTorch, for the tests of the wide layout.
 """
 from __future__ import annotations
 
@@ -109,23 +107,20 @@ def build() -> tuple[str, str]:
     return path, proc.stdout + proc.stderr
 
 
-def _load_library():
-    """Build (if missing) and bind the kernels' library."""
-    path, _ = build()
+def _bind(path: str):
+    """Load the kernels' library at ``path`` and declare its functions."""
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "launch_closest_hit": [i, p, p, p, i, p, p, p, p, p, p, p],
-        "launch_closest_hit_v1": [i, p, p, p, p, i, p, p, p, p, p, p, p],
+        "launch_any_hit_precise": [i, p, p, p, i, p, p, p],
         "launch_any_hit": [i, p, p, p, p, i, p, p, p],
-        "closest_hit_launch_info": [i, i, ctypes.POINTER(i)],
+        "kernel_launch_info": [i, i, ctypes.POINTER(i)],
         "trace_kernels_max_stack": [],
         "trace_kernels_wide_max_stack": [],
     }
     signatures["launch_closest_hit_precise"] = signatures["launch_closest_hit"]
-    signatures["launch_closest_hit_precise_v1"] = \
-        signatures["launch_closest_hit_v1"]
-    signatures["launch_any_hit_precise"] = signatures["launch_any_hit"]
+    signatures["launch_any_hit_precise_v1"] = signatures["launch_any_hit"]
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -139,7 +134,7 @@ def _load_library():
 def _library():
     global _LIB
     if _LIB is None:
-        _LIB = _load_library()
+        _LIB = _bind(build()[0])
     return _LIB
 
 
@@ -154,7 +149,7 @@ def _need(t, name, dev, dtype, ncols, align=16):
         raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
 
 
-def _check_rays(rays, n_tri, counters, n_counters):
+def _check_rays(rays, n_tri, counters):
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
         raise ValueError(f"rays must be float32 (7, R), got {rays.dtype} "
                          f"{tuple(rays.shape)}")
@@ -165,27 +160,28 @@ def _check_rays(rays, n_tri, counters, n_counters):
                          "leaf payload")
     if counters is not None and (counters.device != rays.device
                                  or counters.dtype != torch.int64
-                                 or counters.numel() != n_counters
+                                 or counters.numel() != 4
                                  or not counters.is_contiguous()):
-        raise ValueError(f"counters must be a contiguous ({n_counters},) "
-                         "int64 tensor on the rays' device")
+        raise ValueError("counters must be a contiguous (4,) int64 tensor "
+                         "on the rays' device")
 
 
-def _check_binary(nodes_f, nodes_i, tris, stack_depth, rays, counters,
-                  tri_cols, n_counters):
-    """tris: the (T, 12) tri_m12 of the fast kernels or, with tri_cols=9,
-    the (T, 9) tri9 of the precise ones."""
+def _check_binary(bvh, precise, rays, counters):
+    """The binary walk's tables: nodes_f, nodes_i and the (T, 12) tri_m12
+    or, precise, the (T, 9) tri9."""
     dev = rays.device
-    _need(nodes_f, "nodes_f", dev, torch.float32, 12)
-    _need(nodes_i, "nodes_i", dev, torch.int32, 2)
-    _need(tris, "tri_m12" if tri_cols == 12 else "tri9", dev, torch.float32,
-          tri_cols)
-    if nodes_f.shape[0] != nodes_i.shape[0]:
+    _need(bvh.nodes_f, "nodes_f", dev, torch.float32, 12)
+    _need(bvh.nodes_i, "nodes_i", dev, torch.int32, 2)
+    tris = bvh.tri9 if precise else bvh.tri_m12
+    _need(tris, "tri9" if precise else "tri_m12", dev, torch.float32,
+          9 if precise else 12)
+    if bvh.nodes_f.shape[0] != bvh.nodes_i.shape[0]:
         raise ValueError("nodes_f and nodes_i row counts differ")
-    _check_rays(rays, tris.shape[0], counters, n_counters)
-    if stack_depth > MAX_STACK:
-        raise ValueError(f"BVH needs {stack_depth} stack slots, the kernels "
-                         f"have {MAX_STACK}")
+    _check_rays(rays, tris.shape[0], counters)
+    if bvh.stack_depth > MAX_STACK:
+        raise ValueError(f"BVH needs {bvh.stack_depth} stack slots, the "
+                         f"kernels have {MAX_STACK}")
+    return tris
 
 
 def wide_stack_slots(wide_depth: int) -> int:
@@ -210,8 +206,15 @@ def _plain_or_kernel(rays):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _closest_outputs(rays):
+# the kernels of kernel_launch_info, in its order
+KERNEL_NAMES = ("closest_hit", "closest_hit_precise", "any_hit",
+                "any_hit_precise", "any_hit_precise_v1")
+
+
+def _outputs(rays, any_hit):
     n, dev = rays.shape[1], rays.device
+    if any_hit:
+        return (torch.empty(n, dtype=torch.bool, device=dev),)
     return (torch.empty(n, dtype=torch.float32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev),
             torch.empty(n, dtype=torch.float32, device=dev),
@@ -219,18 +222,19 @@ def _closest_outputs(rays):
             torch.empty(n, dtype=torch.bool, device=dev))
 
 
-def _launch_closest(name, bvh, precise, rays, counters):
-    """The wide closest-hit kernels: nodes_w with tri_m12 or tri9p."""
+def _launch(name, bvh, precise, any_hit, rays, counters):
+    """The team kernels of the wide tree: nodes_w with tri_m12 or tri9p.
+    Returns the closest-hit outputs, or (any_hit) the occlusion tensor."""
     dev = rays.device
     tris = bvh.tri9p if precise else bvh.tri_m12
     _need(bvh.nodes_w, "nodes_w", dev, torch.float32, 32, align=128)
     _need(tris, "tri9p" if precise else "tri_m12", dev, torch.float32, 12)
-    _check_rays(rays, tris.shape[0], counters, 4)
+    _check_rays(rays, tris.shape[0], counters)
     slots = wide_stack_slots(bvh.wide_depth)
     if slots > WIDE_MAX_STACK:
         raise ValueError(f"the wide BVH needs {slots} stack slots, the "
                          f"kernels have {WIDE_MAX_STACK}")
-    out = _closest_outputs(rays)
+    out = _outputs(rays, any_hit)
     launch = getattr(_library(), "launch_" + name)
     with torch.cuda.device(dev):
         rc = launch(
@@ -241,40 +245,20 @@ def _launch_closest(name, bvh, precise, rays, counters):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
-    return out
+    return out[0] if any_hit else out
 
 
-def _launch_closest_v1(name, bvh, precise, rays, counters):
-    tris = bvh.tri9 if precise else bvh.tri_m12
-    _check_binary(bvh.nodes_f, bvh.nodes_i, tris, bvh.stack_depth, rays,
-                  counters, 9 if precise else 12, 4)
-    out = _closest_outputs(rays)
+def _launch_binary(name, bvh, precise, rays, counters):
+    """The binary any-hit walk: nodes_f, nodes_i with tri_m12 or tri9."""
+    tris = _check_binary(bvh, precise, rays, counters)
+    occ = torch.empty(rays.shape[1], dtype=torch.bool, device=rays.device)
     launch = getattr(_library(), "launch_" + name)
     with torch.cuda.device(rays.device):
         rc = launch(
             rays.shape[1], rays.data_ptr(), bvh.nodes_f.data_ptr(),
             bvh.nodes_i.data_ptr(), tris.data_ptr(), tris.shape[0],
-            *(o.data_ptr() for o in out), _ptr(counters),
+            occ.data_ptr(), _ptr(counters),
             torch.cuda.current_stream(rays.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
-    return out
-
-
-def _launch_any(name, nodes_f, nodes_i, tris, tri_cols, stack_depth, rays,
-                counters):
-    _check_binary(nodes_f, nodes_i, tris, stack_depth, rays, counters,
-                  tri_cols, 2)
-    n = rays.shape[1]
-    dev = rays.device
-    occ = torch.empty(n, dtype=torch.bool, device=dev)
-    launch = getattr(_library(), "launch_" + name)
-    with torch.cuda.device(dev):
-        rc = launch(
-            n, rays.data_ptr(), nodes_f.data_ptr(), nodes_i.data_ptr(),
-            tris.data_ptr(), tris.shape[0], occ.data_ptr(),
-            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -291,7 +275,7 @@ def closest_hit(bvh, rays, counters=None):
     [3] to the largest visits and tests of any one ray."""
     if _plain_or_kernel(rays):
         return closest_hit_plain(bvh.tri_m12, rays)
-    return _launch_closest("closest_hit", bvh, False, rays, counters)
+    return _launch("closest_hit", bvh, False, False, rays, counters)
 
 
 def closest_hit_precise(bvh, rays, counters=None):
@@ -300,56 +284,46 @@ def closest_hit_precise(bvh, rays, counters=None):
     are those of ``closest_hit``."""
     if _plain_or_kernel(rays):
         return closest_hit_precise_plain(bvh.tri9, rays)
-    return _launch_closest("closest_hit_precise", bvh, True, rays, counters)
+    return _launch("closest_hit_precise", bvh, True, False, rays, counters)
 
 
-def closest_hit_v1(bvh, rays, counters=None):
-    """K1's binary predecessor (``nodes_f``, ``nodes_i``, ``tri_m12``): the
-    same function, kept to time ``closest_hit`` against."""
+def any_hit(bvh, rays, counters=None):
+    """K2: occlusion per ray -> (R,) bool: any hit in (1e-6, t_max)
+    (``nodes_f``, ``nodes_i`` and ``tri_m12`` are read); rays with t_max < 0
+    are inactive and report False.  ``counters`` as for ``closest_hit``."""
     if _plain_or_kernel(rays):
-        return closest_hit_plain(bvh.tri_m12, rays)
-    return _launch_closest_v1("closest_hit_v1", bvh, False, rays, counters)
+        return any_hit_plain(bvh.tri_m12, rays)
+    return _launch_binary("any_hit", bvh, False, rays, counters)
 
 
-def closest_hit_precise_v1(bvh, rays, counters=None):
-    """K3's binary predecessor (``nodes_f``, ``nodes_i``, ``tri9``)."""
+def any_hit_precise(bvh, rays, counters=None):
+    """K2p: occlusion with the watertight shear test (``nodes_w`` and
+    ``tri9p`` are read); the output, the inactive-ray rule and
+    ``counters`` are those of ``any_hit``."""
     if _plain_or_kernel(rays):
-        return closest_hit_precise_plain(bvh.tri9, rays)
-    return _launch_closest_v1("closest_hit_precise_v1", bvh, True, rays,
-                              counters)
+        return any_hit_precise_plain(bvh.tri9, rays)
+    return _launch("any_hit_precise", bvh, True, True, rays, counters)
 
 
-def closest_hit_launch_info(n_rays: int, precise: bool) -> dict:
+def any_hit_precise_v1(bvh, rays, counters=None):
+    """K2p's binary predecessor (``nodes_f``, ``nodes_i``, ``tri9``): the
+    same function, kept to time ``any_hit_precise`` against."""
+    if _plain_or_kernel(rays):
+        return any_hit_precise_plain(bvh.tri9, rays)
+    return _launch_binary("any_hit_precise_v1", bvh, True, rays, counters)
+
+
+def launch_info(name: str, n_rays: int) -> dict:
     """Registers and local bytes a thread, resident blocks an SM and the
-    grid of a ``closest_hit`` (or, precise, ``closest_hit_precise``) launch
-    of ``n_rays`` rays on the current card; the kernels use no shared
+    grid of a launch of the wrapper ``name`` (one of ``KERNEL_NAMES``) on
+    ``n_rays`` rays on the current card; the kernels use no shared
     memory."""
     out = (ctypes.c_int * 4)()
-    rc = _library().closest_hit_launch_info(int(precise), n_rays, out)
+    rc = _library().kernel_launch_info(KERNEL_NAMES.index(name), n_rays, out)
     if rc != 0:
-        raise RuntimeError(f"closest_hit_launch_info: cudaError {rc}")
+        raise RuntimeError(f"kernel_launch_info: cudaError {rc}")
     return dict(zip(("registers", "local_bytes", "blocks_per_sm", "grid"),
                     out))
-
-
-def any_hit(nodes_f, nodes_i, tri_m12, stack_depth, rays, counters=None):
-    """K2: occlusion per ray -> (R,) bool: any hit in (1e-6, t_max); rays
-    with t_max < 0 are inactive and report False.  ``counters``: optional
-    (2,) int64 CUDA tensor that the kernel adds its node visits and
-    triangle tests to."""
-    if _plain_or_kernel(rays):
-        return any_hit_plain(tri_m12, rays)
-    return _launch_any("any_hit", nodes_f, nodes_i, tri_m12, 12, stack_depth,
-                       rays, counters)
-
-
-def any_hit_precise(nodes_f, nodes_i, tri9, stack_depth, rays, counters=None):
-    """K2p: occlusion with the watertight shear test; outputs, the
-    inactive-ray rule and ``counters`` are those of ``any_hit``."""
-    if _plain_or_kernel(rays):
-        return any_hit_precise_plain(tri9, rays)
-    return _launch_any("any_hit_precise", nodes_f, nodes_i, tri9, 9,
-                       stack_depth, rays, counters)
 
 
 # ---------------------------------------------------------------------------
@@ -470,14 +444,17 @@ def any_hit_precise_plain(tri9, rays):
 _DONE = -2 ** 31        # WIDE_DONE of the kernels: no leaf ref
 
 
-def walk_wide_plain(bvh, rays, precise: bool = False):
-    """Closest hit by the wide kernels' walk, all rays in lockstep: per ray
-    a stack of refs into ``bvh.nodes_w``; a node visit tests its four
-    child boxes with the kernels' slab test (padded far distance, slack on
-    the bound), goes on with the nearest hit child and pushes the others
-    far-first; a leaf tests its triangles in order with the kernels' rule
-    for the better hit.  Reads ``nodes_w`` and ``tri_m12`` or ``tri9``
-    (whose floats ``tri9p`` repeats); returns what ``closest_hit`` does."""
+def walk_wide_plain(bvh, rays, precise: bool = False, any_hit: bool = False):
+    """Closest hit (or, any_hit, occlusion) by the team kernels' walk of the
+    wide tree, all rays in lockstep: per ray a stack of refs into
+    ``bvh.nodes_w``; a node visit tests its four child boxes with the
+    kernels' slab test (padded far distance, slack on the bound), goes on
+    with the nearest hit child and pushes the others far-first (any_hit: the
+    first hit child in slot order, the others pushed unsorted); a leaf tests
+    its triangles in order with the kernels' rule for the better hit, or
+    (any_hit) ends the ray at its first hit below t_max.  Reads ``nodes_w``
+    and ``tri_m12`` or ``tri9`` (whose floats ``tri9p`` repeats); returns
+    what ``closest_hit`` (``any_hit``) does."""
     n, dev = rays.shape[1], rays.device
     nodes = bvh.nodes_w
     refs_w = nodes[:, 24:28].contiguous().view(torch.int32).to(torch.int64)
@@ -493,7 +470,9 @@ def walk_wide_plain(bvh, rays, precise: bool = False):
     stack = torch.full((n, wide_stack_slots(bvh.wide_depth) + 1), _DONE,
                        dtype=torch.int64, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
-    cur = torch.where(tmax > 0.0, 0, _DONE)          # t_max <= 0: dead ray
+    # closest hit: t_max <= 0 is a dead ray; any hit: t_max < 0 an inactive
+    live = tmax >= 0.0 if any_hit else tmax > 0.0
+    cur = torch.where(live, 0, _DONE)
     inv = [1.0 / rays[3 + a] for a in range(3)]
 
     def pop(rows):
@@ -521,7 +500,8 @@ def walk_wide_plain(bvh, rays, precise: bool = False):
             lim = best_t[at_node, None] * torch.tensor(
                 T_SLACK, dtype=torch.float32, device=dev)
             hit = (tn <= tf) & (tf > 0.0) & (tn <= lim)
-            key = torch.where(hit, tn.clamp(min=0.0), float("inf"))
+            key = torch.where(hit, 0.0 if any_hit else tn.clamp(min=0.0),
+                              float("inf"))
             order = torch.argsort(key, dim=1, stable=True)
             child = refs_w[cur[at_node]].gather(1, order)
             n_hit = hit.sum(dim=1)
@@ -545,11 +525,19 @@ def walk_wide_plain(bvh, rays, precise: bool = False):
                                               & (tri < best_tri[rows]))
                 if precise:
                     lower = lower | (best_tri[rows] < 0)
+                if any_hit:   # the first hit; the cull bound stays t_max
+                    better = ok & (best_tri[rows] < 0)
+                    best_tri[rows[better]] = tri[better]
+                    continue
                 better = ok & lower
                 rows, tri = rows[better], tri[better]
                 best_t[rows], best_tri[rows] = t[better], tri
                 b1[rows], b2[rows] = u[better], v[better]
             cur[at_leaf] = pop(at_leaf)
+            if any_hit:
+                cur[at_leaf[best_tri[at_leaf] >= 0]] = _DONE
     found = best_tri >= 0
+    if any_hit:
+        return found
     return (torch.where(found, best_t, BIG_T), best_tri.to(torch.int32),
             torch.where(found, b1, 0.0), torch.where(found, b2, 0.0), found)

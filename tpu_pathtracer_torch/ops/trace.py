@@ -2,10 +2,10 @@
 
 Counterpart of ``tpu_pathtracer/ops/trace.py`` for the main triangle soup.
 On a CUDA device the queries run the hand-written kernels of
-``ops/cuda_trace.py`` (the closest-hit kernels walk the 4-wide tree of
-``widen_bvh``, a warp's lanes sharing the work of its rays; the any-hit
-kernels walk the binary tree, one thread a ray); on the
-CPU they run those kernels' plain PyTorch versions.  The JAX package's
+``ops/cuda_trace.py``: K1, K3 and K2p walk the 4-wide tree of
+``widen_bvh``, a warp's lanes sharing the work of its rays (K2p ends a ray
+for all its lanes at its first hit), K2 walks the binary tree, one thread
+a ray; on the CPU they run those kernels' plain PyTorch versions.  The JAX package's
 TPU-only machinery (block culling, coherence sort, chunking past
 MAX_DENSE_TRIS, the custom-vjp detachment) has no counterpart here.
 
@@ -41,11 +41,10 @@ class BVHArrays:
                             t = -o_w / d_w and barycentrics (u, v) of (p1, p2)
     stack_depth: traversal stack slots the tree needs (depth + 2)
     nodes_w: (N4, 32) f32 -- the same tree, 4 wide, one 128-byte row per
-                            node (``widen_bvh``); read by the closest-hit
-                            kernels
+                            node (``widen_bvh``); read by K1, K3 and K2p
     tri9p:   (T, 12) f32 -- tri9's floats, one padded 16-byte group per
                             axis (``pad_tri9``); read by the precise
-                            closest-hit kernel
+                            kernels
     wide_depth: levels of the 4-wide tree
     """
     nodes_f: torch.Tensor
@@ -262,11 +261,8 @@ def intersect_p(bvh: BVHArrays, ray_o, ray_d, t_max, active=None,
                 precise: bool = False):
     """Occlusion (any hit in (1e-6, t_max)) query; returns (R,) bool."""
     rays = pack_rays(ray_o, ray_d, t_max, active)
-    if precise:
-        return cuda_trace.any_hit_precise(bvh.nodes_f, bvh.nodes_i, bvh.tri9,
-                                          bvh.stack_depth, rays)
-    return cuda_trace.any_hit(bvh.nodes_f, bvh.nodes_i, bvh.tri_m12,
-                              bvh.stack_depth, rays)
+    kernel = cuda_trace.any_hit_precise if precise else cuda_trace.any_hit
+    return kernel(bvh, rays)
 
 
 def intersect_scene(scene, ray_o, ray_d, t_max=BIG_T, active=None,
