@@ -39,6 +39,13 @@ line per phase; any failed check raises and the script exits non-zero.
            tables) at the memory rate.  The counters also give the largest
            node-visit and triangle-test count of any one ray (the longest
            chain), on every set.
+           New traffic, each set held exact against the plain version and
+           timed the same way, fast and precise: the step-2 continuation
+           rays of scene 8 (SF11 glass bunny) at 512x512, inside and
+           outside the glass; the camera rays of scene 19 (spheres under a
+           sky, no box) at 512x512, many of which miss everything; and the
+           step-2 shadow rays of scene 19, toward the environment light
+           (t_max = 3e38).
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render.  Checks: K1 and K2 launch counts equal the
@@ -51,9 +58,17 @@ line per phase; any failed check raises and the script exits non-zero.
   ladder   scene 6 (gold bunny), NEE + random sampler, 512x512, depth 16,
            precise, 4 spp: the same launch, non-finite and mean checks; and
            scene 0, PT + random, 256x256, 4 spp, where no any-hit kernel may
-           be launched.
+           be launched.  Then bench.py's other rungs at its sizes, fast,
+           depth 16, table_res 64, 4 spp after a 1 spp warm-up (bench.py
+           runs 16 to 256): scene 3 PT + random 256x256 (textures, a normal
+           map), scene 8 MIS + Sobol 512x512 (dispersive glass), scene 10
+           MIS + Sobol 1024x1024 (thin plastic); scene 19 MIS + Sobol and
+           scene 1 NEE + Sobol at 512x512 (environment light, PBR,
+           clearcoat and plastic; two point lights); and scene 8 with
+           ``precise=True``, display RMSE against its fast render <= 0.01.
   parity   scene 17 at 64x48, 2 spp, depth 6 on the card and on the CPU
-           (plain versions), fast and precise: display RMSE <= 0.01 each.
+           (plain versions), fast and precise; scenes 8 and 19 the same,
+           fast: display RMSE <= 0.01 each.
 
 Before its last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  It exits non-zero, with
@@ -460,6 +475,25 @@ def main() -> int:
     time_over_tile(cuda_trace, scene.bvh, "any_hit_precise",
                    rec_precise["any_hit_precise"])
     del rec_fast, rec_precise
+
+    # ---- kernels on the traffic of glass and of an environment light ----------
+    for n, picks in ((8, (("step2", 1, True),)),
+                     (19, (("camera", 0, True), ("env_shadow_step2", 1, False)))):
+        s_n, m_n, c_n = load_scene(n, 512, 512, table_res=64, device=dev)
+        ncfg = integ.RenderConfig(width=512, height=512, spp=4, max_depth=16)
+        for names, c in ((FAST, ncfg),
+                         (PRECISE, dataclasses.replace(ncfg, precise=True))):
+            rec = record_tile_rays(cuda_trace, integ, s_n, m_n, c_n, c)
+            for set_name, step, closest in picks:
+                name = names[0] if closest else names[1]
+                rays = rec[name][step]
+                live = rays[6] >= 0.0
+                if not closest and not bool((rays[6][live] > 1e38).all()):
+                    raise AssertionError("scene 19's shadow rays should all "
+                                         "have t_max = 3e38")
+                label = f"scene{n}_{set_name}"
+                check_kernel(cuda_trace, s_n.bvh, name, {label: rays}, label)
+        del rec, s_n
     emit("kernels", precise_over_fast=dict(
         closest=kernel_rows["closest_hit_precise"]["ms"]
         / kernel_rows["closest_hit"]["ms"],
@@ -493,21 +527,52 @@ def main() -> int:
         timed_render(*helpers, f"ladder_scene{n}", s_l, m_l, c_l, lcfg,
                      expect=expect, forbid=forbid)
 
+    # ---- ladder: bench.py's other rungs and the new lights, fast --------------
+    for n, size, strategy, sampler in ((3, 256, "pt", "random"),
+                                       (8, 512, "mis", "sobol"),
+                                       (10, 1024, "mis", "sobol"),
+                                       (19, 512, "mis", "sobol"),
+                                       (1, 512, "nee", "sobol")):
+        s_l, m_l, c_l = load_scene(n, size, size, table_res=64, device=dev)
+        lcfg = integ.RenderConfig(width=size, height=size, spp=4,
+                                  max_depth=16, strategy=strategy,
+                                  sampler=sampler)
+        expect, forbid = ((FAST[:1], PRECISE + FAST[1:]) if strategy == "pt"
+                          else (FAST, PRECISE))
+        img, _ = timed_render(*helpers, f"ladder_scene{n}", s_l, m_l, c_l,
+                              lcfg, expect=expect, forbid=forbid)
+        if n == 8:
+            img_p, _ = timed_render(
+                *helpers, "ladder_scene8_precise", s_l, m_l, c_l,
+                dataclasses.replace(lcfg, precise=True), expect=PRECISE,
+                forbid=FAST)
+            rmse = display_rmse(img_p, img)
+            emit("ladder_scene8_precise", rmse_vs_fast=rmse)
+            if not rmse <= GATE_RMSE:
+                raise AssertionError(f"scene 8 precise vs fast display RMSE "
+                                     f"{rmse} > {GATE_RMSE}")
+        del s_l, img
+
     # ---- parity: card vs CPU plain versions, fast and precise -----------------
     pw, ph = 64, 48
-    s_cpu, m_cpu, c_cpu = load_scene(17, pw, ph, table_res=64, device="cpu")
-    for precise in (False, True):
-        pcfg = integ.RenderConfig(width=pw, height=ph, spp=2, max_depth=6,
-                                  precise=precise)
-        t0 = time.perf_counter()
-        img_gpu = integ.render(s_cpu, m_cpu, c_cpu, pcfg, device=dev).cpu()
-        img_cpu = integ.render(s_cpu, m_cpu, c_cpu, pcfg, device="cpu")
-        rmse = display_rmse(img_gpu, img_cpu)
-        emit("parity", width=pw, height=ph, spp=2, max_depth=6,
-             precise=precise, rmse=rmse, seconds=time.perf_counter() - t0)
-        if not rmse <= GATE_RMSE:
-            raise AssertionError(f"card vs CPU display RMSE {rmse} > "
-                                 f"{GATE_RMSE} (precise={precise})")
+    for n, modes in ((17, (False, True)), (8, (False,)), (19, (False,))):
+        s_cpu, m_cpu, c_cpu = load_scene(n, pw, ph, table_res=64,
+                                         device="cpu")
+        for precise in modes:
+            pcfg = integ.RenderConfig(width=pw, height=ph, spp=2,
+                                      max_depth=6, precise=precise)
+            t0 = time.perf_counter()
+            img_gpu = integ.render(s_cpu, m_cpu, c_cpu, pcfg,
+                                   device=dev).cpu()
+            img_cpu = integ.render(s_cpu, m_cpu, c_cpu, pcfg, device="cpu")
+            rmse = display_rmse(img_gpu, img_cpu)
+            emit("parity", scene=n, width=pw, height=ph, spp=2, max_depth=6,
+                 precise=precise, rmse=rmse,
+                 seconds=time.perf_counter() - t0)
+            if not rmse <= GATE_RMSE:
+                raise AssertionError(f"scene {n}: card vs CPU display RMSE "
+                                     f"{rmse} > {GATE_RMSE} "
+                                     f"(precise={precise})")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,

@@ -178,6 +178,43 @@ def test_kernels_small_and_sparse_launches(dragon, dev, kernel, n):
             assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
+def test_kernels_on_misses_and_axis_shadow_rays(dragon, dev, precise):
+    """Traffic the environment-light scenes bring: closest-hit rays that
+    miss everything (K1, K3), and shadow rays along the six axes with
+    t_max = 3e38 (K2, K2p; zero direction components, an unbounded
+    segment), each against its plain version."""
+    rng = np.random.default_rng(9)
+    n = 8192
+    o = rng.normal(size=(n, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 3.0
+    away = o / np.linalg.norm(o, axis=-1, keepdims=True)
+
+    def v3(a):
+        t = torch.tensor(a, dtype=torch.float32, device=dev)
+        return V3(t[:, 0], t[:, 1], t[:, 2])
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    rays = ttrace.pack_rays(v3(o), v3(away), ttrace.BIG_T, act)
+    name = "closest_hit_precise" if precise else "closest_hit"
+    table = dragon.tri9 if precise else dragon.tri_m12
+    got = getattr(cuda_trace, name)(dragon, rays)
+    ref = getattr(cuda_trace, name + "_plain")(table, rays)
+    torch.cuda.synchronize()
+    _assert_closest_equal(got, ref)
+    assert not got[4].any()                       # every ray misses
+
+    axes = np.concatenate([np.eye(3), -np.eye(3)])[rng.integers(0, 6, n)]
+    start = rng.uniform(-1.5, 1.5, size=(n, 3)) - axes * 2.0
+    rays = ttrace.pack_rays(v3(start), v3(axes), 3e38, act)
+    assert float(rays[6].min()) > 1e38
+    name = "any_hit_precise" if precise else "any_hit"
+    got = getattr(cuda_trace, name)(dragon, rays)
+    ref = getattr(cuda_trace, name + "_plain")(table, rays)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert 0 < int(got.sum()) < n
+
+
 def test_any_hit_precise_kernel_matches_plain(dragon, dev):
     o, d, act, tmax = _rays(8192, 4, dev)
     rays = ttrace.pack_rays(o, d, tmax, act)

@@ -1,11 +1,15 @@
 """The port's scene build vs the JAX package's, import hygiene, the device
-rule, and the NotImplementedError fences around the slice.
+rule, and the NotImplementedError fences around what is not ported.
 
-Both packages build scenes 0, 6, 16 and 17 with the pure-numpy SAH builder
-(the JAX one with TPT_NO_NATIVE=1), so every table must come out the same:
-integer and
-BVH tables exactly, float tables within 1e-6 relative (the rgb2spec
-coefficient lookup runs in float32 on both sides).
+Both packages build every scene without an instanced group with the
+pure-numpy SAH builder (the JAX one with TPT_NO_NATIVE=1), so every table
+must come out the same: integer and BVH tables exactly, float tables
+(textures and the environment's CDFs included) within 1e-6 relative (the
+rgb2spec coefficient lookup runs in float32 on both sides).  The SAH
+build is a pure function of the triangle boxes, so each package's build
+is computed once per distinct geometry in this module (ten scenes share
+the Cornell box with the bunny) and its tables are still compared for
+every scene.
 """
 import ast
 import dataclasses
@@ -18,15 +22,33 @@ import numpy as np
 import pytest
 import torch
 
+import tpu_pathtracer.scene.builder as jbuilder
 from tpu_pathtracer.scenes import load_scene as jload
 from tpu_pathtracer_torch import resolve_device
+from tpu_pathtracer_torch.bridge import as_numpy_tree, scene_from_numpy
 from tpu_pathtracer_torch.render import integrator as tint
 from tpu_pathtracer_torch.render.sampler import make_sampler
 from tpu_pathtracer_torch.scene import builder as tbuilder
-from tpu_pathtracer_torch.scene.types import MAT_GLASS, SceneMeta, check_ported
+from tpu_pathtracer_torch.scene.types import SceneMeta, check_ported
 from tpu_pathtracer_torch.scenes import load_scene as tload
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "tpu_pathtracer_torch"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def bvh_once_per_geometry():
+    """Each package's SAH build, computed once per set of triangle boxes."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jbuilder, tbuilder):
+            cache = {}
+
+            def build(lo, hi, _real=mod.build_bvh, _cache=cache):
+                key = (lo.tobytes(), hi.tobytes())
+                if key not in _cache:
+                    _cache[key] = _real(lo, hi)
+                return _cache[key]
+            mp.setattr(mod, "build_bvh", build)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -52,10 +74,13 @@ def test_scene17_tables_match_jax(scenes):
     _tables_match(*scenes)
 
 
-@pytest.mark.parametrize("n", [0, 6, 16])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 11, 13, 15,
+                               16, 18, 19])
 def test_scene_tables_match_jax(n):
-    """Scenes 0 (Lambert bunny), 6 (gold bunny: the eta and k bank rows)
-    and 16 (clearcoat dragon) built by both packages."""
+    """Every scene without an instanced group, built by both packages: the
+    metal's eta and k bank rows (6), the glass's Sellmeier row (8, 11),
+    plastics (9, 10, 13), point lights (1, 2), textures and normal maps
+    (3, 4, 5, 15, 18), the environment map and its CDFs (19)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         j = jload(n, 32, 24, table_res=16)
@@ -77,6 +102,14 @@ def _tables_match(j, t):
         tt, jt = getattr(ts, table), getattr(js, table)
         for f in dataclasses.fields(tt):
             _eq(getattr(tt, f.name), getattr(jt, f.name), f"{table}.{f.name}")
+    assert len(ts.textures) == len(js.textures)
+    for k, (a, b) in enumerate(zip(ts.textures, js.textures)):
+        _eq(a, b, f"textures[{k}]")
+    assert (ts.env is None) == (js.env is None)
+    if ts.env is not None:
+        for f in dataclasses.fields(ts.env):
+            _eq(getattr(ts.env, f.name), getattr(js.env, f.name),
+                f"env.{f.name}")
     assert tuple(tm) == tuple(jm)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
 
@@ -142,16 +175,40 @@ def test_outside_slice_config_raises(change, error):
 
 
 def test_outside_slice_scene_raises():
-    for n in (1, 3, 7, 19):     # point lights, textures, instances
+    """What is not ported raises: the instanced scenes, an instanced group
+    from the JAX package, a material or light kind the port does not know,
+    an unknown material descriptor, instances in the builder."""
+    for n in (7, 12, 14):     # four instanced bunnies each
         with pytest.raises(NotImplementedError):
             tload(n, 8, 8, device="cpu")
     with pytest.raises(ValueError):
         make_sampler("halton", 0, 1, (8, 8))
+    js, jm, jc = jload(7, 8, 6, table_res=16)
+    assert js.instanced
     with pytest.raises(NotImplementedError):
-        check_ported(SceneMeta(mat_types=(MAT_GLASS,), light_types=(0,),
+        scene_from_numpy(as_numpy_tree(js), jm._asdict(),
+                         dataclasses.asdict(jc), device="cpu")
+    with pytest.raises(NotImplementedError):
+        check_ported(SceneMeta(mat_types=(7,), light_types=(0,),
                                n_tris=2, has_env=False, texture_shapes=()))
     with pytest.raises(NotImplementedError):
-        check_ported(SceneMeta(mat_types=(0,), light_types=(1,), n_tris=2,
+        check_ported(SceneMeta(mat_types=(0,), light_types=(5,), n_tris=2,
                                has_env=False, texture_shapes=()))
     with pytest.raises(NotImplementedError):
         tbuilder.SceneBuilder(table_res=16).add_material(object())
+    with pytest.raises(NotImplementedError):
+        tbuilder.SceneBuilder(table_res=16).add_instances(None, [])
+
+
+@pytest.mark.parametrize("n", [15, 19])
+def test_bridge_round_trip_textures_and_env(n):
+    """A JAX-built scene carried over by the bridge has the tables of the
+    port's own build: textures (15), the environment map (19)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPT_NO_NATIVE", "1")
+        j = jload(n, 32, 24, table_res=16)
+    js, jm, jc = j
+    bridged = scene_from_numpy(as_numpy_tree(js), jm._asdict(),
+                               dataclasses.asdict(jc), device="cpu")
+    _tables_match(j, bridged)
+    _tables_match(j, tload(n, 32, 24, table_res=16, device="cpu"))

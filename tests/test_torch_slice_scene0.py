@@ -43,17 +43,18 @@ def scene0():
     return (js, jm, jc), t
 
 
-def _cfgs(strategy, sampler, **kw):
+def _cfgs(strategy, sampler, precise=True, **kw):
     common = dict(width=W, height=H, spp=SPP, max_depth=DEPTH,
                   strategy=strategy, sampler=sampler)
     return (jint.RenderConfig(**common),
-            tint.RenderConfig(**common, precise=True, **kw))
+            tint.RenderConfig(**common, precise=precise, **kw))
 
 
-def check_slice(j, t, strategy, sampler):
-    """Render through both packages and apply the slice gates."""
+def check_slice(j, t, strategy, sampler, precise=True):
+    """Render through both packages and apply the slice gates; the port
+    with the watertight hit test, or with the fast one."""
     (js, jm, jc), (ts, tm, tc) = j, t
-    jcfg, tcfg = _cfgs(strategy, sampler)
+    jcfg, tcfg = _cfgs(strategy, sampler, precise)
     jacc, jrays = jint.render_wavefront(js, jm, jc, jcfg, with_ray_count=True)
     jimg = np.asarray(jfilm.finalize(jacc, SPP, tone_map="reinhard",
                                      eotf="srgb"))

@@ -6,14 +6,16 @@ layout (``utils``, ``spectrum``, ``color``, ``scene``, ``scenes``, ``ops``,
 It imports ``torch`` and ``numpy`` only, never ``jax`` and nothing of
 ``tpu_pathtracer``.
 
-What is ported so far is the forward render of scenes 0, 6, 16 and 17
-(Cornell box with a Lambert or gold bunny or a clearcoat dragon): the pt,
+What is ported so far is the forward render of every scene without an
+instanced group (0-6, 8-11, 13, 15-19): every material (Lambert, metal,
+dispersive glass, plastic, PBR, clearcoat, emission), textures and normal
+maps, and area, point, spot, directional and environment lights; the pt,
 nee and mis strategies and the albedo and normal AOVs, the random and
 Z-Sobol samplers, and the traversal kernels (closest hit and any hit, each
 with the fast and with the precise watertight hit test) hand-written in
 CUDA C++ for Hopper (``csrc/trace_kernels.cu``).  ``RenderConfig.precise``
-selects the hit test.  Anything else raises
-``NotImplementedError``.
+selects the hit test.  Instanced groups (scenes 7, 12, 14) and anything
+else not ported raise ``NotImplementedError``.
 
 Entry points take ``device=None`` and then run on ``cuda``; with no GPU
 present they raise instead of falling back.  Pass ``device="cpu"`` to run

@@ -6,7 +6,9 @@ the same field names (``tpu_pathtracer/scene/types.py``,
 ``tpu_pathtracer/render/camera.py``), so that both packages render the
 identical scene.  It imports nothing of the JAX package: the caller does
 the conversion (e.g. ``{k: np.asarray(v) for k, v in scene._asdict()}``,
-nested for ``bvh``, ``materials`` and ``lights``).
+nested for ``bvh``, ``materials``, ``lights`` and ``env``; ``textures`` a
+tuple of arrays).  A scene with instanced groups is refused: they are not
+ported.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ import torch
 from .device import resolve_device
 from .ops.trace import BVHArrays
 from .render.camera import Camera
-from .scene.types import (LightTable, MaterialTable, SceneData, SceneMeta,
-                          check_ported)
+from .scene.types import (EnvMap, LightTable, MaterialTable, SceneData,
+                          SceneMeta, check_ported)
 
 
 def as_numpy_tree(obj):
@@ -50,8 +52,9 @@ def _fields(cls, table) -> dict:
 def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
     """-> (SceneData, SceneMeta, Camera) of the port on ``device``.
 
-    arrays: SceneData fields; ``bvh``, ``materials`` and ``lights`` are
-    dicts of their own fields.  The BVH's traversal stack depth is the
+    arrays: SceneData fields; ``bvh``, ``materials``, ``lights`` and
+    ``env`` (or None) are dicts of their own fields, ``textures`` a tuple
+    of (H, W, C) arrays.  The BVH's traversal stack depth is the
     length of ``bvh["stack_hint"]`` (the JAX package carries it in that
     array's shape).  meta / camera: the SceneMeta / Camera fields."""
     dev = resolve_device(device)
@@ -60,11 +63,9 @@ def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
                          tuple(v) if isinstance(v, (list, tuple)) else v)
                      for k, v in meta.items()})
     check_ported(m)
-    if len(arrays.get("textures", ())) or arrays.get("env") is not None \
-            or len(arrays.get("instanced", ())):
-        raise NotImplementedError(
-            "textures, environment maps and instanced groups are not "
-            "ported yet")
+    if len(arrays.get("instanced", ())):
+        raise NotImplementedError("instanced groups are not ported yet")
+    env = arrays.get("env")
     b = arrays["bvh"]
     bvh = BVHArrays.from_binary(
         np.array(b["nodes_f"], np.float32), np.array(b["nodes_i"], np.int32),
@@ -82,6 +83,8 @@ def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
         area_tri=_t(arrays["area_tri"]),
         area_tri_area=_t(arrays["area_tri_area"]),
         area_tri_cdf=_t(arrays["area_tri_cdf"]),
+        textures=tuple(_t(x) for x in arrays.get("textures", ())),
+        env=None if env is None else EnvMap(**_fields(EnvMap, env)),
         world_radius=_t(arrays["world_radius"]),
         rs_zn=_t(arrays["rs_zn"]),
         rs_coeffs=_t(arrays["rs_coeffs"]),

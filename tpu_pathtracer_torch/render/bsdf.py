@@ -1,17 +1,18 @@
-"""Material sample / evaluate with tag dispatch, for the ported materials.
+"""Material sample / evaluate with tag dispatch.
 
-Counterpart of ``tpu_pathtracer/render/bsdf.py`` restricted to Lambert,
-the measured-IOR conductor (metal), the clearcoat (generalized-Schlick coat
-over the simple-PBR substrate with Beer-Lambert tint) and emission; a
-scene with any other material kind
-raises ``NotImplementedError``.  Each kind present in the scene is
-evaluated over the whole ray batch and merged by ``mat_type`` masks.
+Counterpart of ``tpu_pathtracer/render/bsdf.py``: Lambert, the
+measured-IOR conductor (metal), the dielectrics (glass: dispersive and
+untinted; plastic: tinted, constant eta; smooth, rough and thin forms),
+PBR, the clearcoat (generalized-Schlick coat over the PBR substrate with
+Beer-Lambert tint) and emission, with textured albedo, roughness,
+metallic, coat thickness and emission and the normal-map frame.  Each
+kind present in the scene is evaluated over the whole ray batch and
+merged by ``mat_type`` masks.
 
 Conventions (as in the JAX package): directions live in the vertex
 shading-tangent frame (+Z = shading normal); f includes |cos theta_i|;
-opaque materials reject samples on the other side of the geometric
-normal.  The ported materials carry no textures, so there is no
-normal-map frame.
+a normal map rotates into a second frame inside each material; opaque
+materials reject samples on the other side of the geometric normal.
 """
 from __future__ import annotations
 
@@ -20,14 +21,15 @@ from typing import NamedTuple
 
 import torch
 
-from ..scene.types import (MAT_CLEARCOAT, MAT_EMISSIVE, MAT_LAMBERT,
-                           MAT_METAL, PORTED_MAT_KINDS, MAT_NAMES)
+from ..scene.types import (MAT_CLEARCOAT, MAT_EMISSIVE, MAT_GLASS,
+                           MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_PLASTIC)
 from ..spectrum import grid as sgrid
 from ..spectrum import rgb2spec
 from ..spectrum.sampled import SampledWavelengths, terminate_secondary
-from ..utils.vec import (Frame, S4, V2, V3, dot3, normalize3, s4_mean,
-                         sel, smap, to_frame)
+from ..utils.vec import (Frame, S4, V2, V3, dot3, from_frame, make_frame,
+                         normalize3, s4_mean, sel, smap, to_frame)
 from . import microfacet as mf
+from . import texture as tex_mod
 
 INV_PI = 1.0 / math.pi
 SMOOTH_ALPHA = 1e-3   # effectively-smooth threshold
@@ -39,18 +41,12 @@ class MaterialSample(NamedTuple):
     pdf: torch.Tensor       # (R,)
     sampled: torch.Tensor   # (R,) bool
     specular: torch.Tensor  # (R,) bool
-    wl: SampledWavelengths
+    wl: SampledWavelengths  # dispersion may have terminated the secondaries
 
 
-def _check_kinds(meta) -> set:
-    kinds = set(meta.present_mat_kinds)
-    missing = kinds - PORTED_MAT_KINDS
-    if missing:
-        raise NotImplementedError(
-            f"materials {sorted(MAT_NAMES[k] for k in missing)} are not "
-            "ported yet (ported: lambert, metal, clearcoat, emissive)")
-    return kinds
-
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
 
 def _bank_eval(scene, row, wl) -> S4:
     """Spectra-bank row at the path wavelengths (needs ``wl.bank``)."""
@@ -62,10 +58,64 @@ def _s4_ones(like) -> S4:
     return S4(one, one, one, one)
 
 
+def _texture(scene, tex_ids, uv: V2, n_channels: int, default):
+    return tex_mod.sample_indexed(scene.textures, tex_ids, uv, n_channels,
+                                  default)
+
+
+def _textured_float(scene, it, value, tex_col):
+    """A float parameter: the material's constant, or its gray texture at
+    the hit where it has one."""
+    mat = it.mat_id.long()
+    value = value[mat]
+    if scene.textures:
+        tex_ids = tex_col[mat]
+        t = _texture(scene, tex_ids, it.uv, 1, [0.0])[:, 0]
+        value = torch.where(tex_ids >= 0, t, value)
+    return value
+
+
 def _albedo_spectrum(scene, it, wl) -> S4:
-    """Base color as an S4 reflectance (constant colors only)."""
-    return rgb2spec.sigmoid_poly_s4(scene.materials.base_coeff[it.mat_id.long()],
-                                    wl.lam)
+    """Base color as an S4 reflectance: constant colors were resolved to
+    sigmoid coefficients at build; a texel is looked up in the table."""
+    m = scene.materials
+    mat = it.mat_id.long()
+    coeff = m.base_coeff[mat]
+    if scene.textures:
+        tex_ids = m.base_tex[mat]
+        rgb = _texture(scene, tex_ids, it.uv, 3, [0.0, 0.0, 0.0])
+        tex_coeff = rgb2spec.lookup_coeffs(rgb, scene.rs_zn, scene.rs_coeffs)
+        coeff = torch.where((tex_ids >= 0)[:, None], tex_coeff, coeff)
+    return rgb2spec.sigmoid_poly_s4(coeff, wl.lam)
+
+
+def _normal_map_frame(scene, it):
+    """Per-ray normal-map rotation within the vertex-tangent frame: a Frame
+    N with v_nm = to_frame(N, v_t), the identity where the material has no
+    normal map; None when the scene has no textures."""
+    if not scene.textures:
+        return None
+    tex_ids = scene.materials.normal_tex[it.mat_id.long()]
+    raw = _texture(scene, tex_ids, it.uv, 3, [0.5, 0.5, 1.0])
+    n = normalize3(V3(raw[:, 0] * 2.0 - 1.0, raw[:, 1] * 2.0 - 1.0,
+                      raw[:, 2] * 2.0 - 1.0))
+    z = torch.zeros_like(n.x)
+    n = sel(tex_ids >= 0, n, V3(z, z, torch.ones_like(n.x)))
+    # the frame around the perturbed normal keeps +X as its tangent
+    return make_frame(n, V3(torch.ones_like(n.x), z, z))
+
+
+def _nm_to(nm_frame, v: V3) -> V3:
+    return to_frame(nm_frame, v) if nm_frame is not None else v
+
+
+def _nm_from(nm_frame, v: V3) -> V3:
+    return from_frame(nm_frame, v) if nm_frame is not None else v
+
+
+def _roughness(scene, it):
+    m = scene.materials
+    return _textured_float(scene, it, m.roughness, m.roughness_tex)
 
 
 def sample_cosine_hemisphere(uv: V2) -> V3:
@@ -87,21 +137,22 @@ def _flip_z(v: V3, flip) -> V3:
 # Lambert
 # ---------------------------------------------------------------------------
 
-def _lambert_sample(scene, it, wo_t, uv2, wl):
+def _lambert_sample(scene, it, wo_t, uv2, wl, nm_frame=None):
     albedo = _albedo_spectrum(scene, it, wl)
-    wi = sample_cosine_hemisphere(uv2)
-    wi = _flip_z(wi, wo_t.z < 0.0)
-    cos_i = torch.abs(wi.z)
+    wo_nm = _nm_to(nm_frame, wo_t)
+    wi_nm = sample_cosine_hemisphere(uv2)
+    wi_nm = _flip_z(wi_nm, wo_nm.z < 0.0)
+    cos_i = torch.abs(wi_nm.z)
     f = albedo * (cos_i * INV_PI)
     pdf = cos_i * INV_PI
-    ok = (wo_t.z != 0.0) & (wi.z != 0.0)
-    return f, wi, pdf, ok
+    ok = (wo_nm.z != 0.0) & (wi_nm.z != 0.0)
+    return f, _nm_from(nm_frame, wi_nm), pdf, ok
 
 
-def _lambert_eval(scene, it, wo_t, wi_t, wl):
+def _lambert_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
     albedo = _albedo_spectrum(scene, it, wl)
-    cos_o = wo_t.z
-    cos_i = wi_t.z
+    cos_o = _nm_to(nm_frame, wo_t).z
+    cos_i = _nm_to(nm_frame, wi_t).z
     same = (torch.sign(cos_o) == torch.sign(cos_i)) & (cos_o != 0.0) & (cos_i != 0.0)
     f = albedo * torch.where(same, torch.abs(cos_i) * INV_PI, 0.0)
     pdf = torch.where(same, torch.abs(cos_i) * INV_PI, 0.0)
@@ -111,11 +162,6 @@ def _lambert_eval(scene, it, wo_t, wi_t, wl):
 # ---------------------------------------------------------------------------
 # Conductor / Metal
 # ---------------------------------------------------------------------------
-
-def _roughness(scene, it):
-    """Material roughness (constant; roughness textures are not ported)."""
-    return scene.materials.roughness[it.mat_id.long()]
-
 
 def _metal_eta_k(scene, it, wl):
     m = scene.materials
@@ -134,12 +180,12 @@ def _torrance_sparrow_f(wo, wi, wm, eta, k, alpha):
                               d * g / torch.clamp(4.0 * cos_o, min=1e-12), 0.0)
 
 
-def _metal_sample(scene, it, wo_t, uv2, wl):
+def _metal_sample(scene, it, wo_t, uv2, wl, nm_frame=None):
     eta, k = _metal_eta_k(scene, it, wl)
     rough = _roughness(scene, it)
     alpha = rough * rough
     smooth = alpha < SMOOTH_ALPHA
-    wo = wo_t
+    wo = _nm_to(nm_frame, wo_t)
 
     # specular branch: wi = mirror, f = F, pdf = 1
     wi_s = _mirror(wo)
@@ -158,15 +204,16 @@ def _metal_sample(scene, it, wo_t, uv2, wl):
     wi = sel(smooth, wi_s, wi_m)
     pdf = torch.where(smooth, 1.0, pdf_m)
     ok = (wo.z != 0.0) & (smooth | (same & (pdf_m > 0.0)))
-    return f, wi, pdf, ok, smooth
+    return f, _nm_from(nm_frame, wi), pdf, ok, smooth
 
 
-def _metal_eval(scene, it, wo_t, wi_t, wl):
+def _metal_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
     eta, k = _metal_eta_k(scene, it, wl)
     rough = _roughness(scene, it)
     alpha = rough * rough
     smooth = alpha < SMOOTH_ALPHA
-    wo, wi = wo_t, wi_t
+    wo = _nm_to(nm_frame, wo_t)
+    wi = _nm_to(nm_frame, wi_t)
     wm = wo + wi
     ok = (~smooth) & mf.same_hemisphere(wo, wi) & (dot3(wm, wm) > 0.0) & \
         (wo.z != 0.0) & (wi.z != 0.0)
@@ -174,6 +221,183 @@ def _metal_eval(scene, it, wo_t, wi_t, wl):
     f = _torrance_sparrow_f(wo, wi, wm, eta, k, alpha)
     pdf = mf.vndf_pdf(wo, wm, alpha, alpha) / torch.clamp(
         4.0 * torch.abs(dot3(wo, wm)), min=1e-12)
+    return smap(lambda x: torch.where(ok, x, 0.0), f), torch.where(ok, pdf, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Dielectrics: glass (measured dispersive eta) and plastic (constant eta,
+# tinted transmission)
+# ---------------------------------------------------------------------------
+
+def _dielectric_eta(scene, it, wl, dispersive: bool) -> S4:
+    """S4 absolute IOR of the medium."""
+    m = scene.materials
+    mat = it.mat_id.long()
+    if dispersive:
+        return _bank_eval(scene, torch.clamp(m.eta_row[mat], min=0), wl)
+    e = m.const_eta[mat]
+    return S4(e, e, e, e)
+
+
+def _refl_trans_probs(avg_fresnel, thin):
+    """(pr, pt); a thin surface uses the geometric series of its internal
+    reflections for pr."""
+    r = avg_fresnel
+    t = 1.0 - r
+    r2 = r * r
+    r_thin = torch.where(r2 > 1.0, 1.0,
+                         r + (t * t * r) / torch.clamp(1.0 - r2, min=1e-12))
+    return torch.where(thin, r_thin, r), t
+
+
+def _dielectric_sample(scene, it, wo_t, uc, uv2, wl, nm_frame,
+                       dispersive: bool, tinted: bool):
+    """Returns (f, wi_t, pdf, ok, specular, terminate); ``terminate`` marks
+    the dispersive transmissions that collapse the secondary wavelengths."""
+    n_abs = _dielectric_eta(scene, it, wl, dispersive)
+    entering = dot3(it.geo_n, it.wo) > 0.0
+    thin = scene.materials.thin[it.mat_id.long()] > 0
+    alpha = _roughness(scene, it)          # raw roughness, not squared
+    smooth = alpha < SMOOTH_ALPHA
+
+    wo = _nm_to(nm_frame, wo_t)
+
+    # relative IOR: entering or thin -> n, leaving -> 1/n
+    ent = entering | thin
+    eta_rel = smap(lambda n: torch.where(ent, n, 1.0 / n), n_abs)
+    eta_scalar = eta_rel.a
+
+    # ---- smooth ------------------------------------------------------------
+    zero = torch.zeros_like(uc)
+    n_vec = V3(zero, zero, torch.where(entering, 1.0, -1.0))
+    fres_s = mf.fresnel_dielectric(torch.abs(wo.z), eta_rel)
+    pr_s, pt_s = _refl_trans_probs(s4_mean(fres_s), thin)
+    sum_s = torch.clamp(pr_s + pt_s, min=1e-12)
+    choose_refl_s = uc < pr_s / sum_s
+    wi_refl = _mirror(wo)
+    wt, refract_ok = mf.refract(wo, n_vec, eta_scalar)
+    # transmit: thin -> (1-F); solid -> (1-F)/eta^2 (radiance scaling)
+    one_m_f = 1.0 - fres_s
+    f_trans_s = sel(thin, one_m_f, one_m_f * (1.0 / (eta_scalar ** 2)))
+    wi_s = sel(choose_refl_s, wi_refl, sel(thin, -wo, wt))
+    f_s = sel(choose_refl_s, fres_s, f_trans_s)
+    pdf_s = torch.where(choose_refl_s, pr_s / sum_s, pt_s / sum_s)
+    ok_s = torch.where(choose_refl_s, torch.abs(wo.z) > 1e-6,
+                       thin | refract_ok)
+
+    # ---- rough -------------------------------------------------------------
+    wm = mf.sample_vndf(wo, uv2, alpha, alpha)
+    fres_m = mf.fresnel_dielectric(torch.abs(dot3(wo, wm)), eta_rel)
+    pr_m, pt_m = _refl_trans_probs(s4_mean(fres_m), thin)
+    sum_m = torch.clamp(pr_m + pt_m, min=1e-12)
+    choose_refl_m = uc < pr_m / sum_m
+
+    # reflection lobe: f = F D G / (4 cos_o)
+    wi_mr = mf.reflect(wo, wm)
+    same_r = mf.same_hemisphere(wo, wi_mr)
+    d = mf.distribution_d(wm, alpha, alpha)
+    g_r = mf.g2(wo, wi_mr, alpha, alpha)
+    cos_o = torch.clamp(torch.abs(wo.z), min=1e-12)
+    prob_r = pr_m / sum_m
+    f_mr = fres_m * (d * g_r / (4.0 * cos_o))
+    pdf_mr = mf.vndf_pdf(wo, wm, alpha, alpha) / torch.clamp(
+        4.0 * torch.abs(dot3(wo, wm)), min=1e-12) * prob_r
+    ok_mr = same_r & (torch.abs(dot3(wo, wm)) > 1e-6)
+
+    # transmission lobe; thin rough transmission passes straight through
+    wm_refr = sel(entering, wm, -wm)
+    wi_mt, refr_ok_m = mf.refract(wo, wm_refr, eta_scalar)
+    prob_t = pt_m / sum_m
+    wi_mt = sel(thin, -wo, wi_mt)
+    denom = (dot3(wi_mt, wm) + dot3(wo, wm) / eta_scalar) ** 2
+    dwm_dwi = torch.abs(dot3(wi_mt, wm)) / torch.clamp(denom, min=1e-12)
+    g_t = mf.g2(wo, wi_mt, alpha, alpha)
+    f_mt_solid = (1.0 - fres_m) * (
+        d * g_t * torch.abs(dot3(wi_mt, wm)) * torch.abs(dot3(wo, wm))
+        / (torch.clamp(denom, min=1e-12) * cos_o * eta_scalar ** 2))
+    pdf_mt_solid = mf.vndf_pdf(wo, wm, alpha, alpha) * dwm_dwi * prob_t
+    f_mt = sel(thin, 1.0 - fres_m, f_mt_solid)
+    pdf_mt = torch.where(thin, prob_t, pdf_mt_solid)
+    ok_mt = thin | (refr_ok_m & ~mf.same_hemisphere(wo, wi_mt)
+                    & (torch.abs(wi_mt.z) > 0.0))
+
+    wi_m = sel(choose_refl_m, wi_mr, wi_mt)
+    f_m = sel(choose_refl_m, f_mr, f_mt)
+    pdf_m = torch.where(choose_refl_m, pdf_mr, pdf_mt)
+    ok_m = torch.where(choose_refl_m, ok_mr, ok_mt)
+
+    # ---- merge smooth / rough ---------------------------------------------
+    choose_refl = torch.where(smooth, choose_refl_s, choose_refl_m)
+    wi = sel(smooth, wi_s, wi_m)
+    f = sel(smooth, f_s, f_m)
+    pdf = torch.where(smooth, pdf_s, pdf_m)
+    ok = torch.where(smooth, ok_s, ok_m) & (wo.z != 0.0)
+
+    if tinted:
+        # the plastic's color tints transmission (at the surface uv)
+        tint = _albedo_spectrum(scene, it, wl)
+        transmitted = (dot3(wi, wo) < 0.0) & ~choose_refl
+        f = sel(transmitted, f * tint, f)
+
+    terminate = (~choose_refl & ok) if dispersive else torch.zeros_like(ok)
+    return f, _nm_from(nm_frame, wi), pdf, ok, smooth, terminate
+
+
+def _dielectric_eval(scene, it, wo_t, wi_t, wl, nm_frame, dispersive: bool,
+                     tinted: bool):
+    """f and pdf of a rough dielectric; zero for a smooth one (a delta)."""
+    n_abs = _dielectric_eta(scene, it, wl, dispersive)
+    entering = dot3(it.geo_n, it.wo) > 0.0
+    thin = scene.materials.thin[it.mat_id.long()] > 0
+    alpha = _roughness(scene, it)
+    smooth = alpha < SMOOTH_ALPHA
+
+    wo = _nm_to(nm_frame, wo_t)
+    wi = _nm_to(nm_frame, wi_t)
+
+    ent = entering | thin
+    eta_rel = smap(lambda n: torch.where(ent, n, 1.0 / n), n_abs)
+    eta_scalar = eta_rel.a
+
+    cos_o = wo.z
+    cos_i = wi.z
+    is_refl = cos_i * cos_o > 0.0
+
+    # generalized half vector
+    etap = torch.where(is_refl, 1.0,
+                       torch.where(cos_o > 0.0, eta_scalar, 1.0 / eta_scalar))
+    wm = wi * etap + wo
+    ok = (cos_i != 0.0) & (cos_o != 0.0) & (dot3(wm, wm) > 0.0) & ~smooth
+    wm = normalize3(wm)
+    wm = sel(wm.z < 0.0, -wm, wm)
+    ok = ok & (dot3(wm, wi) * cos_i >= 0.0) & (dot3(wm, wo) * cos_o >= 0.0)
+
+    fres = mf.fresnel_dielectric(torch.abs(dot3(wo, wm)), eta_rel)
+    pr, pt = _refl_trans_probs(s4_mean(fres), thin)
+    d = mf.distribution_d(wm, alpha, alpha)
+    g = mf.g2(wo, wi, alpha, alpha)
+    aco = torch.clamp(torch.abs(cos_o), min=1e-12)
+
+    f_refl = fres * (d * g / (4.0 * aco))
+    denom = (dot3(wi, wm) + dot3(wo, wm) / eta_scalar) ** 2
+    f_trans = (1.0 - fres) * (
+        d * g * torch.abs(dot3(wi, wm)) * torch.abs(dot3(wo, wm))
+        / (torch.clamp(denom, min=1e-12) * aco * eta_scalar ** 2))
+    f = sel(is_refl, f_refl, f_trans)
+
+    vnd = mf.vndf_pdf(wo, wm, alpha, alpha)
+    sum_p = torch.clamp(pr + pt, min=1e-12)
+    pdf_refl = vnd / torch.clamp(4.0 * torch.abs(dot3(wo, wm)), min=1e-12) \
+        * pr / sum_p
+    dwm_dwi = torch.abs(dot3(wi, wm)) / torch.clamp(denom, min=1e-12)
+    pdf_trans_solid = vnd * dwm_dwi * pt / sum_p
+    pdf_trans = torch.where(thin, pt / sum_p, pdf_trans_solid)
+    pdf = torch.where(is_refl, pdf_refl, pdf_trans)
+
+    if tinted:
+        tint = _albedo_spectrum(scene, it, wl)
+        f = sel(~is_refl, f * tint, f)
+
     return smap(lambda x: torch.where(ok, x, 0.0), f), torch.where(ok, pdf, 0.0)
 
 
@@ -234,26 +458,28 @@ def _schlick_r_eval(wo, wi, alpha, r0, r90, tint, exponent=5.0):
 
 
 # ---------------------------------------------------------------------------
-# SimplePbr substrate: metallic Schlick lobe + (Schlick specular / Lambert)
+# PBR: metallic Schlick lobe + (Schlick specular / Lambert) dielectric
 # ---------------------------------------------------------------------------
 
 def _pbr_params(scene, it, wl):
     m = scene.materials
-    mat = it.mat_id.long()
     base = _albedo_spectrum(scene, it, wl)
-    metallic = m.metallic[mat]
-    rough = m.roughness[mat]
+    metallic = _textured_float(scene, it, m.metallic, m.metallic_tex)
+    rough = _roughness(scene, it)
     alpha = rough * rough
-    ior = m.const_eta[mat]
+    ior = m.const_eta[it.mat_id.long()]
     r = (ior - 1.0) / (ior + 1.0)
     r2 = r * r
     return base, metallic, alpha, S4(r2, r2, r2, r2)
 
 
-def _pbr_sample(wo, uc, uc2, uv2, params):
+def _pbr_sample(scene, it, wo_t, uc, uc2, uv2, wl, nm_frame=None,
+                params=None):
     """uc <= metallic -> metal lobe; else dielectric with a Fresnel-weighted
-    specular (uc2 < F) / diffuse choice.  Local frame."""
-    base, metallic, alpha, r0_diel = params
+    specular (uc2 < F) / diffuse choice.  The 2-D sample uv2 is shared by
+    the three mutually exclusive lobes."""
+    wo = _nm_to(nm_frame, wo_t)
+    base, metallic, alpha, r0_diel = params or _pbr_params(scene, it, wl)
     one = _s4_ones(wo.z)
 
     pick_metal = uc <= metallic
@@ -277,12 +503,14 @@ def _pbr_sample(wo, uc, uc2, uv2, params):
     ok = torch.where(pick_metal, ok_m, torch.where(pick_spec, ok_s, ok_d))
     spec = torch.where(pick_metal, spec_m,
                        torch.where(pick_spec, spec_s, False))
-    return f, wi, pdf, ok, spec
+    return f, _nm_from(nm_frame, wi), pdf, ok, spec
 
 
-def _pbr_eval(wo, wi, params):
+def _pbr_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
     """Metallic lerp of the metal lobe and (Schlick + (1-F) Lambert)."""
-    base, metallic, alpha, r0_diel = params
+    wo = _nm_to(nm_frame, wo_t)
+    wi = _nm_to(nm_frame, wi_t)
+    base, metallic, alpha, r0_diel = _pbr_params(scene, it, wl)
     one = _s4_ones(wo.z)
     f_metal, pdf_metal = _schlick_r_eval(wo, wi, alpha, base, one, one)
     f_spec, pdf_spec = _schlick_r_eval(wo, wi, alpha, r0_diel, one, one)
@@ -305,7 +533,8 @@ def _pbr_eval(wo, wi, params):
 def _coat_params(scene, it, wl):
     m = scene.materials
     mat = it.mat_id.long()
-    thickness = m.coat_thickness[mat]
+    thickness = _textured_float(scene, it, m.coat_thickness,
+                                m.coat_thickness_tex)
     coat_alpha = m.coat_roughness[mat] ** 2
     ior = m.coat_eta[mat]
     rr = (ior - 1.0) / (ior + 1.0)
@@ -322,11 +551,11 @@ def _beer_lambert(tint: S4, thickness_mm, cos_theta) -> S4:
                                     * (l / 0.001)), tint)
 
 
-def _clearcoat_sample(scene, it, wo_t, uc, uc2, uc3, uv2, wl):
+def _clearcoat_sample(scene, it, wo_t, uc, uc2, uc3, uv2, wl, nm_frame=None):
     """Coat vs substrate chosen by the coat's analytic Schlick albedo at
     wo; uc picks coat/substrate, uc2 the substrate's metal lobe, uc3 its
     specular/diffuse split."""
-    wo = wo_t
+    wo = _nm_to(nm_frame, wo_t)
     one = _s4_ones(wo.z)
     thickness, coat_alpha, coat_r0, tint = _coat_params(scene, it, wl)
     params = _pbr_params(scene, it, wl)
@@ -340,7 +569,9 @@ def _clearcoat_sample(scene, it, wo_t, uc, uc2, uc3, uv2, wl):
                                                        coat_r0, one, one)
     pdf_c = pdf_c * e_coat
 
-    f_b, wi_b, pdf_b, ok_b, spec_b = _pbr_sample(wo, uc2, uc3, uv2, params)
+    f_b, wi_b_t, pdf_b, ok_b, spec_b = _pbr_sample(
+        scene, it, wo_t, uc2, uc3, uv2, wl, nm_frame, params=params)
+    wi_b = _nm_to(nm_frame, wi_b_t)
     att = _beer_lambert(tint, thickness, torch.abs(wo.z)) * \
         _beer_lambert(tint, thickness, torch.abs(wi_b.z))
     att = sel(has_coat, att, one)
@@ -352,12 +583,13 @@ def _clearcoat_sample(scene, it, wo_t, uc, uc2, uc3, uv2, wl):
     pdf = torch.where(pick_coat, pdf_c, pdf_b)
     ok = torch.where(pick_coat, ok_c, ok_b)
     spec = torch.where(pick_coat, spec_c, spec_b)
-    return f, wi, pdf, ok, spec
+    return f, _nm_from(nm_frame, wi), pdf, ok, spec
 
 
-def _clearcoat_eval(scene, it, wo_t, wi_t, wl):
+def _clearcoat_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
     """f = f_coat + att * f_substrate; pdf lerped by the coat albedo."""
-    wo, wi = wo_t, wi_t
+    wo = _nm_to(nm_frame, wo_t)
+    wi = _nm_to(nm_frame, wi_t)
     one = _s4_ones(wo.z)
     thickness, coat_alpha, coat_r0, tint = _coat_params(scene, it, wl)
     has_coat = thickness > 0.0
@@ -366,7 +598,7 @@ def _clearcoat_eval(scene, it, wo_t, wi_t, wl):
     e_coat = s4_mean(_schlick_fresnel(torch.abs(wo.z), coat_r0, one, 5.0, one))
     e_coat = torch.where(has_coat, e_coat, 0.0)
 
-    f_b, pdf_b = _pbr_eval(wo, wi, _pbr_params(scene, it, wl))
+    f_b, pdf_b = _pbr_eval(scene, it, wo_t, wi_t, wl, nm_frame)
     att = _beer_lambert(tint, thickness, torch.abs(wo.z)) * \
         _beer_lambert(tint, thickness, torch.abs(wi.z))
     att = sel(has_coat, att, one)
@@ -381,6 +613,9 @@ def _clearcoat_eval(scene, it, wo_t, wi_t, wl):
 # Public dispatch API
 # ---------------------------------------------------------------------------
 
+OPAQUE_KINDS = (MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_CLEARCOAT)
+
+
 def _geo_sidedness(it, frame: Frame, wo_t: V3, wi_t: V3):
     """sign(wo . ng) must equal sign(wi . ng), in the vertex-tangent frame."""
     ng_t = to_frame(frame, it.geo_n)
@@ -393,15 +628,23 @@ def _mat_type(scene, it):
     return scene.materials.mat_type[it.mat_id.long()]
 
 
+def _opaque(mat_type):
+    out = mat_type == OPAQUE_KINDS[0]
+    for k in OPAQUE_KINDS[1:]:
+        out = out | (mat_type == k)
+    return out
+
+
 def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
                     wl, uc2, uc3) -> MaterialSample:
     """Batched material sample over all rays.
 
     uc / uc2 / uc3: independent 1-D draws for up to three sequential lobe
     decisions; uv2: the 2-D lobe sample."""
-    kinds = _check_kinds(meta)
+    kinds = set(meta.present_mat_kinds)
     r = uc.shape[0]
     mat_type = _mat_type(scene, it)
+    nm_frame = _normal_map_frame(scene, it)
 
     zero = torch.zeros_like(uc)
     f = S4(zero, zero, zero, zero)
@@ -409,6 +652,7 @@ def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
     pdf = zero
     sampled = torch.zeros(r, dtype=torch.bool, device=uc.device)
     specular = torch.zeros_like(sampled)
+    terminate = torch.zeros_like(sampled)
 
     def merge(m, kf, kwi, kpdf, kok, kspec):
         nonlocal f, wi_t, pdf, sampled, specular
@@ -419,32 +663,50 @@ def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
         specular = torch.where(m, kspec, specular)
 
     if MAT_LAMBERT in kinds:
-        lf, lwi, lpdf, lok = _lambert_sample(scene, it, wo_t, uv2, wl)
+        lf, lwi, lpdf, lok = _lambert_sample(scene, it, wo_t, uv2, wl,
+                                             nm_frame)
         merge(mat_type == MAT_LAMBERT, lf, lwi, lpdf, lok,
               torch.zeros_like(sampled))
     if MAT_METAL in kinds:
-        mf_, mwi, mpdf, mok, mspec = _metal_sample(scene, it, wo_t, uv2, wl)
+        mf_, mwi, mpdf, mok, mspec = _metal_sample(scene, it, wo_t, uv2, wl,
+                                                   nm_frame)
         merge(mat_type == MAT_METAL, mf_, mwi, mpdf, mok, mspec)
+    if MAT_GLASS in kinds:
+        gf, gwi, gpdf, gok, gspec, gterm = _dielectric_sample(
+            scene, it, wo_t, uc, uv2, wl, nm_frame, dispersive=True,
+            tinted=False)
+        m = mat_type == MAT_GLASS
+        merge(m, gf, gwi, gpdf, gok, gspec)
+        terminate = terminate | (m & gterm)
+    if MAT_PLASTIC in kinds:
+        pf, pwi, ppdf, pok, pspec, _ = _dielectric_sample(
+            scene, it, wo_t, uc, uv2, wl, nm_frame, dispersive=False,
+            tinted=True)
+        merge(mat_type == MAT_PLASTIC, pf, pwi, ppdf, pok, pspec)
+    if MAT_PBR in kinds:
+        bf, bwi, bpdf, bok, bspec = _pbr_sample(scene, it, wo_t, uc, uc2,
+                                                uv2, wl, nm_frame)
+        merge(mat_type == MAT_PBR, bf, bwi, bpdf, bok, bspec)
     if MAT_CLEARCOAT in kinds:
         cf, cwi, cpdf, cok, cspec = _clearcoat_sample(scene, it, wo_t, uc,
-                                                      uc2, uc3, uv2, wl)
+                                                      uc2, uc3, uv2, wl,
+                                                      nm_frame)
         merge(mat_type == MAT_CLEARCOAT, cf, cwi, cpdf, cok, cspec)
 
-    # no ported material is dispersive: terminate nothing
-    out_wl = terminate_secondary(wl, torch.zeros_like(sampled))
+    # a dispersive transmission collapses the path to its hero wavelength
+    out_wl = terminate_secondary(wl, terminate)
 
-    opaque = ((mat_type == MAT_LAMBERT) | (mat_type == MAT_METAL)
-              | (mat_type == MAT_CLEARCOAT))
     side_ok = _geo_sidedness(it, frame, wo_t, wi_t)
-    sampled = sampled & (~opaque | side_ok)
+    sampled = sampled & (~_opaque(mat_type) | side_ok)
     return MaterialSample(f=f, wi_t=wi_t, pdf=pdf, sampled=sampled,
                           specular=specular, wl=out_wl)
 
 
 def evaluate_material(scene, meta, it, frame: Frame, wo_t: V3, wi_t: V3, wl):
     """Batched evaluate + pdf (used by NEE).  Returns (f S4, pdf (R,))."""
-    kinds = _check_kinds(meta)
+    kinds = set(meta.present_mat_kinds)
     mat_type = _mat_type(scene, it)
+    nm_frame = _normal_map_frame(scene, it)
     zero = torch.zeros_like(wo_t.z)
     f = S4(zero, zero, zero, zero)
     pdf = zero
@@ -455,18 +717,27 @@ def evaluate_material(scene, meta, it, frame: Frame, wo_t: V3, wi_t: V3, wl):
         pdf = torch.where(m, kpdf, pdf)
 
     if MAT_LAMBERT in kinds:
-        lf, lpdf = _lambert_eval(scene, it, wo_t, wi_t, wl)
+        lf, lpdf = _lambert_eval(scene, it, wo_t, wi_t, wl, nm_frame)
         merge(mat_type == MAT_LAMBERT, lf, lpdf)
     if MAT_METAL in kinds:
-        mf_, mpdf = _metal_eval(scene, it, wo_t, wi_t, wl)
+        mf_, mpdf = _metal_eval(scene, it, wo_t, wi_t, wl, nm_frame)
         merge(mat_type == MAT_METAL, mf_, mpdf)
+    if MAT_GLASS in kinds:
+        gf, gpdf = _dielectric_eval(scene, it, wo_t, wi_t, wl, nm_frame,
+                                    dispersive=True, tinted=False)
+        merge(mat_type == MAT_GLASS, gf, gpdf)
+    if MAT_PLASTIC in kinds:
+        pf, ppdf = _dielectric_eval(scene, it, wo_t, wi_t, wl, nm_frame,
+                                    dispersive=False, tinted=True)
+        merge(mat_type == MAT_PLASTIC, pf, ppdf)
+    if MAT_PBR in kinds:
+        bf, bpdf = _pbr_eval(scene, it, wo_t, wi_t, wl, nm_frame)
+        merge(mat_type == MAT_PBR, bf, bpdf)
     if MAT_CLEARCOAT in kinds:
-        cf, cpdf = _clearcoat_eval(scene, it, wo_t, wi_t, wl)
+        cf, cpdf = _clearcoat_eval(scene, it, wo_t, wi_t, wl, nm_frame)
         merge(mat_type == MAT_CLEARCOAT, cf, cpdf)
 
-    opaque = ((mat_type == MAT_LAMBERT) | (mat_type == MAT_METAL)
-              | (mat_type == MAT_CLEARCOAT))
-    keep = ~opaque | _geo_sidedness(it, frame, wo_t, wi_t)
+    keep = ~_opaque(mat_type) | _geo_sidedness(it, frame, wo_t, wi_t)
     return smap(lambda x: torch.where(keep, x, 0.0), f), torch.where(keep, pdf, 0.0)
 
 
@@ -476,16 +747,24 @@ def is_bsdf_material(scene, it):
 
 
 def emission_spectral(scene, meta, mat_id, uv: V2, wl) -> S4:
-    """Radiance spectrum x intensity for material rows ``mat_id``, no
-    emissive-type gating (constant spectra only)."""
-    if meta.has_emission_tex:
-        raise NotImplementedError("textured emission is not ported yet")
+    """Radiance spectrum x intensity for material rows ``mat_id`` at
+    ``uv`` (a constant spectrum or an RGB texture), no emissive-type
+    gating."""
     m = scene.materials
     mat = mat_id.long()
     row = m.emission_row[mat]
     scale = m.emission_scale[mat]
     le_bank = _bank_eval(scene, torch.clamp(row, min=0), wl)
     le = smap(lambda x: torch.where(row >= 0, x, 0.0), le_bank)
+    if meta.has_emission_tex and scene.textures:
+        tex_ids = m.emission_tex[mat]
+        rgb = _texture(scene, tex_ids, uv, 3, [0.0, 0.0, 0.0])
+        # D65 is spectra-bank row 0
+        d65 = sgrid.bank_pick(wl.bank, torch.zeros_like(row))
+        le_tex = rgb2spec.illuminant_eval_s4(rgb, wl.lam, scene.rs_zn,
+                                             scene.rs_coeffs,
+                                             scene.spectra[0], d65_vals=d65)
+        le = sel(tex_ids >= 0, le_tex, le)
     return le * scale
 
 

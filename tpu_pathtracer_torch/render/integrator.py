@@ -24,8 +24,10 @@ tile is done change nothing (no lane regenerates, traces or finalizes).
 
 Strategy bookkeeping: pt counts every emissive hit; nee counts emissive
 hits only after specular bounces (the camera ray counts as one) and adds
-unweighted NEE; mis weights both by the balance heuristic.  With pt no
-shadow ray is traced.  ``cfg.precise`` selects the watertight hit test
+unweighted NEE; mis weights both by the balance heuristic.  A ray that
+escapes picks up the environment's radiance: every escape under pt and
+(MIS-weighted) mis, the camera ray's alone under nee.  With pt no shadow
+ray is traced.  ``cfg.precise`` selects the watertight hit test
 for every traced ray (None means False; no environment variable is read).
 """
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..spectrum import sampled as swl
 from ..utils.vec import (S4, V3, dot3, from_frame, make_frame, sel, smap,
                          to_frame)
 from . import bsdf as bsdf_mod
+from . import env as env_mod
 from . import film as film_mod
 from . import lights as lights_mod
 from .sampler import make_sampler
@@ -195,6 +198,11 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
     hit = trace.intersect_scene(scene, ray_o, ray_d, BIG_T, precise=precise)
     it = make_interaction(scene, hit, ray_o, ray_d)
 
+    # camera-ray miss -> environment radiance
+    if meta.has_env:
+        env_l = env_mod.env_radiance(scene, wl, ray_d)
+        radiance = _madd(radiance, ~it.valid, throughput * env_l)
+
     # first-hit emissive
     le = bsdf_mod.emitted_radiance(scene, meta, it, wl)
     radiance = _madd(radiance, it.valid, throughput * le)
@@ -271,6 +279,19 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
                                  lights_mod._balance(ms.pdf, pdf_light))
         radiance = _madd(radiance, cont & it2.valid, emit_contrib * w_emit)
 
+        # BSDF-sampled escape to the environment
+        if meta.has_env and strategy in ("pt", "mis"):
+            env_l = env_mod.env_radiance(scene, wl, wi)
+            if strategy == "pt":
+                w_env = torch.ones_like(ms.pdf)
+            else:
+                pdf_env = lights_mod.pdf_env_for_direction(scene, meta, wl,
+                                                           wi)
+                w_env = torch.where(ms.specular, 1.0,
+                                    lights_mod._balance(ms.pdf, pdf_env))
+            radiance = _madd(radiance, cont & ~it2.valid,
+                             throughput * f_over_pdf * env_l * w_env)
+
         throughput = sel(cont, throughput * f_over_pdf, throughput)
         alive = cont & it2.valid & bsdf_mod.is_bsdf_material(scene, it2)
 
@@ -315,6 +336,7 @@ def _wavefront_init(r: int, spp_start: int, accum):
         depth=torch.zeros(r, dtype=torch.int32, device=dev),
         tracing=torch.zeros(r, dtype=torch.bool, device=dev),
         last_seg=torch.zeros(r, dtype=torch.bool, device=dev),
+        is_cam=torch.zeros(r, dtype=torch.bool, device=dev),
         prev_spec=torch.zeros(r, dtype=torch.bool, device=dev),
         prev_pdf=zeros(),
         prev_pos=V3(zeros(), zeros(), zeros()),
@@ -355,6 +377,7 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
     thr_emit = sel(regen, w4, s["thr_emit"])
     radiance = sel(regen, _s4_zeros(px.shape[0], px.device), s["radiance"])
     depth = torch.where(regen, 0, s["depth"])
+    is_cam = torch.where(regen, True, s["is_cam"])
     prev_spec = torch.where(regen, True, s["prev_spec"])
     prev_pdf = torch.where(regen, 0.0, s["prev_pdf"])
     prev_pos = sel(regen, cam_o, s["prev_pos"])
@@ -386,6 +409,22 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                              lights_mod._balance(prev_pdf, pdf_light))
     # the traced ray's Le uses the throughput before roulette's boost
     radiance = _madd(radiance, valid, thr_emit * le * w_emit)
+
+    # ---- escape to the environment --------------------------------------
+    if meta.has_env:
+        env_l = env_mod.env_radiance(scene, wl, ray_d)
+        if strategy == "pt":
+            w_env = torch.ones_like(prev_pdf)
+        elif strategy == "nee":
+            # BSDF-sampled escapes are left to NEE; camera misses count
+            w_env = torch.where(is_cam, 1.0, 0.0)
+        else:
+            pdf_env = lights_mod.pdf_env_for_direction(scene, meta, wl,
+                                                       ray_d)
+            w_env = torch.where(prev_spec, 1.0,
+                                lights_mod._balance(prev_pdf, pdf_env))
+        radiance = _madd(radiance, tracing & ~it.valid,
+                         thr_emit * env_l * w_env)
 
     # ---- continue from this vertex? -------------------------------------
     alive = valid & bsdf_mod.is_bsdf_material(scene, it) & ~last_seg
@@ -448,6 +487,7 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
         depth=torch.where(new_tracing, depth + 1, depth),
         tracing=new_tracing,
         last_seg=torch.where(new_tracing, new_last, last_seg),
+        is_cam=torch.where(new_tracing, False, is_cam),
         prev_spec=torch.where(new_tracing, ms.specular, prev_spec),
         prev_pdf=torch.where(new_tracing, ms.pdf, prev_pdf),
         prev_pos=sel(new_tracing, it.position, prev_pos),

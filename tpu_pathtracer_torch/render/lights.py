@@ -1,11 +1,10 @@
-"""Light sampling for area lights: power CDF, NEE, MIS pdfs.
+"""Light sampling: power CDF, NEE, MIS pdfs.
 
-Counterpart of the area-light parts of ``tpu_pathtracer/render/lights.py``.
-phi(lambda) of every light is an O(K) select over the per-step wavelength
-bank; the light count is static, so the CDF walk unrolls.  MIS weights
-include the light-selection probability on both the NEE and BSDF sides,
-as in the JAX package.  Point, spot, directional and environment lights
-raise ``NotImplementedError``.
+Counterpart of ``tpu_pathtracer/render/lights.py``: area, point, spot,
+directional and environment lights.  phi(lambda) of every light is an
+O(K) select over the per-step wavelength bank; the light count is static,
+so the CDF walk unrolls.  MIS weights include the light-selection
+probability on both the NEE and BSDF sides, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -15,10 +14,12 @@ from typing import NamedTuple
 import torch
 
 from ..ops import trace
-from ..scene.types import LIGHT_AREA
+from ..scene.types import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_ENV,
+                           LIGHT_POINT, LIGHT_SPOT)
 from ..utils.vec import (S4, V2, V3, cross3, dot3, normalize3, s4_mean, sel,
                          smap, to_frame, v3_unstack)
 from . import bsdf as bsdf_mod
+from . import env as env_mod
 
 RAY_EPS_NEE = 1.0e-4
 BIG_T = 3.0e38
@@ -128,33 +129,85 @@ def _sample_area_point(scene, meta, light_row, s, uv2: V2):
 
 def evaluate_nee(scene, meta, it, frame, wo_t: V3, wl, u_light, u_s,
                  u_uv: V2, with_mis: bool, precise: bool = False) -> NeeResult:
-    """One NEE event per ray against the scene's area lights, with one
+    """One NEE event per ray, over the light kinds present, with one
     batched shadow-ray (any-hit) query."""
-    r = u_light.shape[0]
     zero = torch.zeros_like(u_light)
     zero4 = S4(zero, zero, zero, zero)
     if meta.n_lights == 0:
         return NeeResult(zero4, torch.ones_like(u_light))
-    if any(t != LIGHT_AREA for t in meta.light_types):
-        raise NotImplementedError(
-            "NEE for point, spot, directional and environment lights is not "
-            "ported yet (area lights only)")
 
     light_row, prob, any_l = pick_light(scene, meta, wl, u_light)
-    p, ln, _tri, uv_l = _sample_area_point(scene, meta, light_row, u_s, u_uv)
-    dvec = p - it.position
-    d2 = torch.clamp(dot3(dvec, dvec), min=1e-12)
-    wi = dvec * (1.0 / torch.sqrt(d2))
-    cos_l = torch.abs(dot3(ln, -wi))
-    area_total = torch.clamp(scene.lights.area_total[light_row], min=1e-12)
-    pdf_area = 1.0 / area_total
-    g = cos_l / d2
-    le = bsdf_mod.emission_spectral(
-        scene, meta, torch.clamp(scene.lights.mat_id[light_row], min=0),
-        uv_l, wl)
-    t_max = torch.sqrt(d2) - 2.0 * RAY_EPS_NEE
-    light_term = le * (g / pdf_area)
-    pdf_dir = pdf_area * d2 / torch.clamp(cos_l, min=1e-8)
+    lights = scene.lights
+    lt = lights.light_type[light_row]
+    l_spec = bsdf_mod._bank_eval(scene, lights.spectrum_row[light_row], wl)
+    l_int = lights.intensity[light_row]
+    types = set(meta.light_types)
+
+    # shadow ray and light term per light kind, merged by masks
+    wi = V3(zero, zero, torch.ones_like(u_light))
+    t_max = torch.full_like(u_light, BIG_T)
+    light_term = zero4                     # before 1/prob and the BSDF
+    pdf_dir = torch.ones_like(u_light)     # direction pdf for MIS
+    is_delta = torch.ones_like(any_l)
+
+    if LIGHT_POINT in types or LIGHT_SPOT in types:
+        lp = v3_unstack(lights.position[light_row])
+        dvec = lp - it.position
+        d2 = torch.clamp(dot3(dvec, dvec), min=1e-12)
+        wdir = dvec * (1.0 / torch.sqrt(d2))
+        m = (lt == LIGHT_POINT) | (lt == LIGHT_SPOT)
+        # I spec / d^2; a spot adds its smoothstep falloff
+        inten = l_spec * l_int
+        if LIGHT_SPOT in types:
+            axis = v3_unstack(lights.direction[light_row])
+            cos_t = dot3(-wdir, axis)
+            ci = lights.cos_inner[light_row]
+            co = lights.cos_outer[light_row]
+            tt = torch.clamp((cos_t - co) / torch.clamp(ci - co, min=1e-8),
+                             0.0, 1.0)
+            falloff = tt * tt * (3.0 - 2.0 * tt)
+            inten = sel(lt == LIGHT_SPOT, inten * falloff, inten)
+        wi = sel(m, wdir, wi)
+        t_max = torch.where(m, torch.sqrt(d2) - 2.0 * RAY_EPS_NEE, t_max)
+        light_term = sel(m, inten * (1.0 / d2), light_term)
+
+    if LIGHT_DIRECTIONAL in types:
+        m = lt == LIGHT_DIRECTIONAL
+        wi = sel(m, v3_unstack(lights.direction[light_row]), wi)
+        t_max = torch.where(m, BIG_T, t_max)
+        light_term = sel(m, l_spec * l_int, light_term)
+
+    if LIGHT_AREA in types:
+        m = lt == LIGHT_AREA
+        p, ln, _tri, uv_l = _sample_area_point(scene, meta, light_row, u_s,
+                                               u_uv)
+        dvec = p - it.position
+        d2 = torch.clamp(dot3(dvec, dvec), min=1e-12)
+        wdir = dvec * (1.0 / torch.sqrt(d2))
+        cos_l = torch.abs(dot3(ln, -wdir))
+        area_total = torch.clamp(lights.area_total[light_row], min=1e-12)
+        pdf_area = 1.0 / area_total
+        g = cos_l / d2
+        # the emitter's radiance at the sampled point (texture or spectrum)
+        le = bsdf_mod.emission_spectral(
+            scene, meta, torch.clamp(lights.mat_id[light_row], min=0),
+            uv_l, wl)
+        wi = sel(m, wdir, wi)
+        t_max = torch.where(m, torch.sqrt(d2) - 2.0 * RAY_EPS_NEE, t_max)
+        light_term = sel(m, le * (g / pdf_area), light_term)
+        pdf_dir = torch.where(
+            m, pdf_area * d2 / torch.clamp(cos_l, min=1e-8), pdf_dir)
+        is_delta = is_delta & ~m
+
+    if LIGHT_ENV in types and scene.env is not None:
+        m = lt == LIGHT_ENV
+        wdir, le, p_dir = env_mod.sample_env_direction(scene, wl, u_uv)
+        wi = sel(m, wdir, wi)
+        t_max = torch.where(m, BIG_T, t_max)
+        light_term = sel(m, le * (1.0 / torch.clamp(p_dir, min=1e-12)),
+                         light_term)
+        pdf_dir = torch.where(m, p_dir, pdf_dir)
+        is_delta = is_delta & ~m
 
     shadow_o = it.position + wi * RAY_EPS_NEE
     occluded = trace.intersect_p_scene(scene, shadow_o, wi, t_max,
@@ -169,7 +222,7 @@ def evaluate_nee(scene, meta, it, frame, wo_t: V3, wl, u_light, u_s,
     contrib = smap(lambda x: torch.where(visible, x, 0.0), contrib)
 
     if with_mis:
-        w = _balance(prob * pdf_dir, pdf_bsdf)
+        w = torch.where(is_delta, 1.0, _balance(prob * pdf_dir, pdf_bsdf))
         w = torch.where(visible, w, 1.0)
     else:
         w = torch.ones_like(u_light)
@@ -196,3 +249,19 @@ def pdf_light_for_hit_pos(scene, meta, prev_pos: V3, next_it, wl):
     cos_l = torch.abs(dot3(next_it.geo_n, dvec)) / torch.sqrt(d2)
     pdf_dir = (1.0 / area_total) * d2 / torch.clamp(cos_l, min=1e-8)
     return torch.where(is_area, prob * pdf_dir, 0.0)
+
+
+def pdf_env_for_direction(scene, meta, wl, direction: V3):
+    """Summed pdf over environment lights of a BSDF-sampled escape
+    direction (the builder allows one environment light)."""
+    r = direction.x.shape[0]
+    if not meta.has_env:
+        return torch.zeros_like(direction.x)
+    pdf = torch.zeros_like(direction.x)
+    for er, t in enumerate(meta.light_types):
+        if t != LIGHT_ENV:
+            continue
+        row = torch.full((r,), er, dtype=torch.int64, device=direction.x.device)
+        prob = light_probability(scene, meta, wl, row)
+        pdf = pdf + prob * env_mod.env_pdf_direction(scene, direction)
+    return pdf

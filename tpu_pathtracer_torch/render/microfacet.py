@@ -1,8 +1,8 @@
 """Trowbridge-Reitz (GGX) microfacet functions on (R,) components.
 
-Counterpart of ``tpu_pathtracer/render/microfacet.py`` (the parts the
-ported materials use: D, Lambda, G1, G2, the VNDF and its pdf, reflect,
-and the conductor Fresnel term).
+Counterpart of ``tpu_pathtracer/render/microfacet.py`` (D, Lambda, G1,
+G2, the VNDF and its pdf, reflect, refract, and the dielectric and
+conductor Fresnel terms).
 Directions are V3 in a local shading frame with +Z the normal.
 """
 from __future__ import annotations
@@ -98,8 +98,38 @@ def reflect(wo: V3, n: V3) -> V3:
     return n * (2.0 * dot3(wo, n)) - wo
 
 
+def refract(wi: V3, n: V3, eta):
+    """Refraction of wi through n with relative IOR eta -> (wt, ok); ok is
+    False on total internal reflection."""
+    cos_i = dot3(wi, n)
+    sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = sin2_i / (eta * eta)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wt = -wi * (1.0 / eta) + n * (cos_i / eta - cos_t)
+    ok = ~tir & (dot3(wt, wt) > 1e-12)
+    return normalize3(wt), ok
+
+
 def same_hemisphere(a: V3, b: V3):
     return a.z * b.z > 0.0
+
+
+def _fresnel_dielectric_lane(ci, eta):
+    """(R,) dielectric Fresnel for one wavelength lane (1 on TIR)."""
+    sin2_i = 1.0 - ci * ci
+    sin2_t = sin2_i / (eta * eta)
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
+    r_par = (eta * ci - cos_t) / (eta * ci + cos_t)
+    r_per = (ci - eta * cos_t) / (ci + eta * cos_t)
+    return 0.5 * (r_par * r_par + r_per * r_per)
+
+
+def fresnel_dielectric(cos_i, eta: S4) -> S4:
+    """Spectral dielectric Fresnel: cos_i (R,), eta an S4 of relative
+    IOR -> S4 reflectance."""
+    ci = torch.clamp(cos_i, 0.0, 1.0)
+    return S4(*(_fresnel_dielectric_lane(ci, e) for e in eta.lanes))
 
 
 def _fresnel_complex_lane(ci, er, ei):

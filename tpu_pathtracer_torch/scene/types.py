@@ -3,13 +3,13 @@
 Counterpart of ``tpu_pathtracer/scene/types.py``, with the same field
 names.  ``SceneData`` and its tables are frozen dataclasses of tensors with
 ``.to(device)``; ``SceneMeta`` is a small hashable record of static facts.
-The slice carries the main triangle soup only (no textures, environment
-map or instanced groups).
+The port carries the main triangle soup, its textures and the
+environment map; instanced groups are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,9 +29,6 @@ MAT_NAMES = {
     MAT_PLASTIC: "plastic", MAT_PBR: "pbr", MAT_CLEARCOAT: "clearcoat",
     MAT_EMISSIVE: "emissive",
 }
-# the material kinds this port renders
-PORTED_MAT_KINDS = frozenset((MAT_LAMBERT, MAT_METAL, MAT_CLEARCOAT,
-                              MAT_EMISSIVE))
 
 # light kind tags
 LIGHT_AREA = 0
@@ -40,6 +37,11 @@ LIGHT_SPOT = 2
 LIGHT_DIRECTIONAL = 3
 LIGHT_ENV = 4
 
+LIGHT_NAMES = {
+    LIGHT_AREA: "area", LIGHT_POINT: "point", LIGHT_SPOT: "spot",
+    LIGHT_DIRECTIONAL: "directional", LIGHT_ENV: "environment",
+}
+
 
 class _Tensors:
     """``.to(device)`` over every tensor field, recursively."""
@@ -47,6 +49,8 @@ class _Tensors:
     def to(self, device):
         def move(v):
             # tensors, tables and the BVH all have .to(device)
+            if isinstance(v, tuple):
+                return tuple(move(x) for x in v)
             return v.to(device) if hasattr(v, "to") else v
         return dataclasses.replace(
             self, **{f.name: move(getattr(self, f.name))
@@ -98,6 +102,16 @@ class LightTable(_Tensors):
 
 
 @dataclasses.dataclass(frozen=True)
+class EnvMap(_Tensors):
+    """Equirect HDR environment with its two-stage sampling CDFs."""
+    rgb: torch.Tensor              # (H, W, 3) linear rgb
+    marginal_cdf: torch.Tensor     # (H,) row CDF
+    conditional_cdf: torch.Tensor  # (H, W) per-row column CDF
+    avg_rgb: torch.Tensor          # (3,) sin(theta)-weighted average color
+    rotation: torch.Tensor         # () f32 azimuth rotation (radians)
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneData(_Tensors):
     """Everything the integrator needs, as tensors."""
     bvh: BVHArrays
@@ -112,6 +126,8 @@ class SceneData(_Tensors):
     area_tri: torch.Tensor       # (AT,) i32 triangle id (leaf order)
     area_tri_area: torch.Tensor  # (AT,) f32
     area_tri_cdf: torch.Tensor   # (AT,) f32 per-light CDF
+    textures: Tuple[torch.Tensor, ...]  # each (H, W, C) f32, decoded
+    env: Optional[EnvMap]
     world_radius: torch.Tensor   # () f32
     rs_zn: torch.Tensor          # (res,) rgb2spec z nodes
     rs_coeffs: torch.Tensor      # (3, res, res, res, 3)
@@ -141,17 +157,12 @@ class SceneMeta(NamedTuple):
 
 
 def check_ported(meta: SceneMeta) -> None:
-    """Raise NotImplementedError for scene features outside the port."""
-    missing = set(meta.mat_types) - PORTED_MAT_KINDS
-    if missing:
-        names = sorted(MAT_NAMES[k] for k in missing)
-        raise NotImplementedError(
-            f"materials {names} are not ported yet (ported: lambert, "
-            "metal, clearcoat, emissive)")
-    if any(t != LIGHT_AREA for t in meta.light_types):
-        raise NotImplementedError(
-            "delta and environment lights are not ported yet (area lights only)")
-    if meta.has_env:
-        raise NotImplementedError("environment maps are not ported yet")
-    if meta.texture_shapes or meta.has_emission_tex:
-        raise NotImplementedError("textures are not ported yet")
+    """Raise NotImplementedError for a material or light kind the port
+    does not know.  (Instanced groups, the one scene feature not ported,
+    live in the scene data: the builder and the bridge refuse them.)"""
+    unknown = sorted(set(meta.mat_types) - set(MAT_NAMES))
+    if unknown:
+        raise NotImplementedError(f"material kinds {unknown} are not ported")
+    unknown = sorted(set(meta.light_types) - set(LIGHT_NAMES))
+    if unknown:
+        raise NotImplementedError(f"light kinds {unknown} are not ported")

@@ -1,5 +1,6 @@
-"""The spectral data the ported path needs: the CIE 1931 CMFs, the D65
-illuminant and the measured complex IOR of the metal presets.
+"""The spectral data the port needs: the CIE 1931 CMFs, the D65
+illuminant, the measured complex IOR of the metal presets and the
+Sellmeier dispersion of the glass presets.
 
 Counterpart of the matching parts of ``tpu_pathtracer/spectrum/cie.py``;
 every function returns a dense (470,) float64 numpy array.
@@ -95,3 +96,35 @@ def metal_eta_k(name: str):
     eta_name, k_name = _METAL_TABLES[name]
     return (_readonly(_bake_interleaved(getattr(_md, eta_name))),
             _readonly(_bake_interleaved(getattr(_md, k_name))))
+
+
+# Schott Sellmeier coefficients (public catalog data):
+# name: (B1, B2, B3, C1, C2, C3), C in um^2
+_SELLMEIER = {
+    "bk7": (1.03961212, 0.231792344, 1.01046945,
+            0.00600069867, 0.0200179144, 103.560653),
+    "baf10": (1.5851495, 0.143559385, 1.08521269,
+              0.00926681282, 0.0424489805, 105.613573),
+    "fk51a": (0.971247817, 0.216901417, 0.904651666,
+              0.00472301995, 0.0153575612, 168.68133),
+    "lasf9": (2.00029547, 0.298926886, 1.80691843,
+              0.0121426017, 0.0538736236, 156.530829),
+    "sf5": (1.52481889, 0.187085527, 1.42729015,
+            0.011254756, 0.0588995392, 129.141675),
+    "sf10": (1.62153902, 0.256287842, 1.64447552,
+             0.0122241457, 0.0595736775, 147.468793),
+    "sf11": (1.73759695, 0.313747346, 1.89878101,
+             0.013188707, 0.0623068142, 155.23629),
+}
+
+GLASSES = tuple(_SELLMEIER)
+
+
+@lru_cache(maxsize=None)
+def glass_eta(name: str) -> np.ndarray:
+    """Dense refractive index curve of a glass (Sellmeier equation)."""
+    b1, b2, b3, c1, c2, c3 = _SELLMEIER[name]
+    lam_um2 = (DENSE_LAMBDA * 1e-3) ** 2
+    n2 = 1.0 + b1 * lam_um2 / (lam_um2 - c1) + b2 * lam_um2 / (lam_um2 - c2) \
+        + b3 * lam_um2 / (lam_um2 - c3)
+    return _readonly(np.sqrt(n2))

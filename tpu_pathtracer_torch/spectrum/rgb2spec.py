@@ -94,6 +94,32 @@ def lookup_coeffs(rgb, zn, coeffs):
     return torch.where(uniform[..., None], const_c, c)
 
 
+def sigmoid_poly(c, lam):
+    """sigmoid(c0 t^2 + c1 t + c2) at wavelengths ``lam``; c: (..., 3),
+    lam broadcastable to (..., L)."""
+    t = (lam - LAMBDA_MIN) / (LAMBDA_MAX - LAMBDA_MIN)
+    c0, c1, c2 = c[..., 0:1], c[..., 1:2], c[..., 2:3]
+    return torch.sigmoid(c0 * t * t + c1 * t + c2)
+
+
+def unbounded_eval(rgb, lam, zn, coeffs):
+    """RgbUnboundedSpectrum at wavelengths ``lam``: scale = 2*max(rgb),
+    poly of rgb/scale.  rgb: (..., 3); lam: (..., L)."""
+    scale = 2.0 * rgb.amax(dim=-1, keepdim=True)
+    rgb_n = torch.where(scale > 0, rgb / torch.clamp(scale, min=1e-12), 0.0)
+    c = lookup_coeffs(rgb_n, zn, coeffs)
+    return scale * sigmoid_poly(c, lam)
+
+
+def illuminant_eval(rgb, lam, zn, coeffs, d65_dense):
+    """RgbIlluminantSpectrum at wavelengths ``lam``: the unbounded
+    spectrum times D65 (a dense (470,) array)."""
+    from .grid import eval_dense
+    base = unbounded_eval(rgb, lam, zn, coeffs)
+    d65 = torch.tensor(np.asarray(d65_dense), dtype=base.dtype)
+    return base * eval_dense(d65, lam)
+
+
 def sigmoid_poly_s4(c, lam: S4) -> S4:
     """sigmoid(c0 t^2 + c1 t + c2) at S4 wavelengths; c: (R, 3)."""
     c0, c1, c2 = c[..., 0], c[..., 1], c[..., 2]
