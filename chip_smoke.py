@@ -45,7 +45,12 @@ line per phase; any failed check raises and the script exits non-zero.
            outside the glass; the camera rays of scene 19 (spheres under a
            sky, no box) at 512x512, many of which miss everything; and the
            step-2 shadow rays of scene 19, toward the environment light
-           (t_max = 3e38).
+           (t_max = 3e38).  Instanced traffic, at 512x512 (4 x 262,144
+           lanes a launch): the step-2 launches on scene 7's group of K1
+           and K2 (fast) and on scene 12's of K3 and K2p (precise), whose
+           rays are in the instances' object space (directions not of unit
+           length), bounded by the main soup's closest hit, the lanes
+           outside an instance's box dead.
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render.  Checks: K1 and K2 launch counts equal the
@@ -66,9 +71,17 @@ line per phase; any failed check raises and the script exits non-zero.
            scene 1 NEE + Sobol at 512x512 (environment light, PBR,
            clearcoat and plastic; two point lights); and scene 8 with
            ``precise=True``, display RMSE against its fast render <= 0.01.
+           The instanced scenes, MIS + Sobol 512x512: scene 7 fast and
+           scene 12 fast and precise (display RMSE of precise against fast
+           <= 0.01); each kernel launched 1 + G times a step (G = 1 group).
+  progressive  scene 7 at 256x256, 4 spp: ``render_progressive`` in chunks
+           of 2, and resumed from the checkpoint of its first chunk, each
+           against the one-shot ``render`` (atol 2e-5, rtol 1e-4); then
+           ``python -m tpu_pathtracer_torch.cli --scene 7`` at 128x96, 4 spp
+           as a subprocess, which must exit 0 and write its PNG.
   parity   scene 17 at 64x48, 2 spp, depth 6 on the card and on the CPU
            (plain versions), fast and precise; scenes 8 and 19 the same,
-           fast: display RMSE <= 0.01 each.
+           fast, and scene 7 fast and precise: display RMSE <= 0.01 each.
 
 Before its last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  It exits non-zero, with
@@ -199,10 +212,12 @@ def device_ms(fn, reps: int) -> float:
 
 
 def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg) -> dict:
-    """The ray tensors the integrator hands each kernel wrapper in every
+    """The launches the integrator makes of each kernel wrapper in every
     wavefront step of the first tile, its steps run as ``render_wavefront``
     runs them (until the all-done flag, read every ``SYNC_EVERY`` steps):
-    {wrapper name: [rays of step 1, step 2, ...]}."""
+    {wrapper name: [(BVH, rays), ...]} in launch order; an instanced scene
+    launches each kernel on the main soup's BVH, then on each group's.
+    ``launches_on`` picks one BVH's."""
     from tpu_pathtracer_torch.render.sampler import make_sampler
 
     recorded = {k: [] for k in KERNELS}
@@ -210,7 +225,8 @@ def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg) -> dict:
 
     def recorder(name):
         def f(*args, **kw):
-            recorded[name].append(args[-1].clone())   # rays come last
+            # the BVH comes first, the rays last
+            recorded[name].append((args[0], args[-1].clone()))
             return real[name](*args, **kw)
         return f
 
@@ -237,6 +253,12 @@ def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg) -> dict:
         for k, fn in real.items():
             setattr(cuda_trace, k, fn)
     return recorded
+
+
+def launches_on(rec: dict, bvh) -> dict:
+    """{wrapper name: [rays of step 1, step 2, ...]} of the launches on
+    ``bvh`` in a ``record_tile_rays`` record."""
+    return {k: [r for b, r in v if b is bvh] for k, v in rec.items()}
 
 
 def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
@@ -373,8 +395,9 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
                  cfg, expect, forbid):
     """One main path: 1 spp warm-up, launch counts set to 0, the timed
     render, the counts read.  ``expect`` kernels must have been launched
-    once per wavefront step, ``forbid`` kernels not at all.  Returns
-    (image, launches)."""
+    1 + G times per wavefront step (once on the main soup, once on each of
+    the scene's G instanced groups), ``forbid`` kernels not at all.
+    Returns (image, launches)."""
     integ.render(scene, meta, cam, dataclasses.replace(cfg, spp=1))
     torch.cuda.synchronize()
     cuda_trace.reset_launch_counts()
@@ -396,11 +419,14 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
          precise=bool(cfg.precise), ms=render_ms, wall_s=wall_s,
          mray_s=stats.n_rays / (render_ms * 1e-3) / 1e6, rays=stats.n_rays,
          rays_per_spp=stats.n_rays / cfg.spp, steps=stats.n_steps,
-         launches=launches, nonfinite=nonfinite, mean_linear_rgb=mean_rgb)
+         launches=launches, groups=len(scene.instanced), nonfinite=nonfinite,
+         mean_linear_rgb=mean_rgb)
+    per_step = 1 + len(scene.instanced)
     for k in expect:
-        if launches[k] != stats.n_steps:
+        if launches[k] != stats.n_steps * per_step:
             raise AssertionError(f"{phase}: {k} launched {launches[k]} times "
-                                 f"in {stats.n_steps} wavefront steps")
+                                 f"in {stats.n_steps} wavefront steps of "
+                                 f"{per_step} launches")
     for k in (*forbid, *V1):
         if launches[k] != 0:
             raise AssertionError(f"{phase}: {k} launched {launches[k]} times, "
@@ -414,6 +440,61 @@ def display_rmse(a, b) -> float:
     return float(((a - b) ** 2).mean().sqrt())
 
 
+def check_progressive_and_cli(integ, scene, meta, cam):
+    """``render_progressive`` of scene 7 at 256^2, 4 spp in chunks of 2,
+    against the one-shot ``render`` (the tolerance of
+    tests/test_progressive.py), then a resume from the checkpoint of the
+    first chunk; and the CLI as a subprocess, which must exit 0 and write
+    its PNG."""
+    import tempfile
+    from tpu_pathtracer_torch.render.progressive import render_progressive
+
+    cfg = integ.RenderConfig(width=256, height=256, spp=4, max_depth=16)
+    t0 = time.perf_counter()
+    ref = integ.render(scene, meta, cam, cfg).cpu().numpy()
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_first(state):
+        if state.spp_done == 2:
+            raise Stop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "film.npz")
+        whole = render_progressive(scene, meta, cam, cfg, chunk_spp=2)
+        try:
+            render_progressive(scene, meta, cam, cfg, checkpoint_path=ckpt,
+                               chunk_spp=2, on_chunk=stop_after_first)
+            raise AssertionError("the render was not stopped after a chunk")
+        except Stop:
+            pass
+        resumed = render_progressive(scene, meta, cam, cfg,
+                                     checkpoint_path=ckpt, chunk_spp=2)
+        errs = {}
+        for label, img in (("chunks", whole), ("resumed", resumed)):
+            err = abs(img - ref)
+            errs[label] = float(err.max())
+            if not bool((err <= 2e-5 + 1e-4 * abs(ref)).all()):
+                raise AssertionError(f"progressive ({label}) differs from "
+                                     f"the one-shot render by {err.max()}")
+        emit("progressive", scene=7, width=256, height=256, spp=4,
+             chunk_spp=2, max_abs_err=errs, seconds=time.perf_counter() - t0)
+
+        png = os.path.join(tmp, "cli.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_pathtracer_torch.cli", "--scene", "7",
+             "--width", "128", "--height", "96", "--spp", "4", "-o", png],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        size = os.path.getsize(png) if os.path.exists(png) else 0
+        emit("cli", rc=proc.returncode, png_bytes=size,
+             stdout=proc.stdout.strip().splitlines(),
+             seconds=time.perf_counter() - t0)
+        if proc.returncode != 0 or size == 0:
+            raise AssertionError(f"the CLI failed: {proc.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -425,6 +506,7 @@ def main() -> int:
     from tpu_pathtracer_torch.color import eotf as eotf_mod
     from tpu_pathtracer_torch.color import tone_map as tm_mod
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     emit("env", nvidia_smi=smi, torch=torch.__version__,
@@ -445,12 +527,25 @@ def main() -> int:
 
     # ---- kernels ------------------------------------------------------------
     W = H = 1024
-    scene, meta, cam = load_scene(17, W, H, table_res=64, device=dev)
+    built = {}
+
+    def scene_at(n, w, h, device=dev):
+        """Scene n (table_res 64) on ``device`` with a w x h camera; each
+        scene is built once, its build does not depend on the film."""
+        if n not in built:
+            built[n] = load_scene(n, w, h, table_res=64, device=dev)
+        s_n, m_n, c_n = built[n]
+        return s_n.to(device), m_n, dataclasses.replace(c_n, width=w,
+                                                       height=h)
+
+    scene, meta, cam = scene_at(17, W, H)
     cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16)
     cfg_precise = dataclasses.replace(cfg, precise=True)
-    rec_fast = record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg)
-    rec_precise = record_tile_rays(cuda_trace, integ, scene, meta, cam,
-                                   cfg_precise)
+    rec_fast = launches_on(
+        record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg), scene.bvh)
+    rec_precise = launches_on(
+        record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg_precise),
+        scene.bvh)
     for names, rec, other in ((FAST, rec_fast, PRECISE),
                               (PRECISE, rec_precise, FAST)):
         n_steps = len(rec[names[0]])
@@ -479,11 +574,13 @@ def main() -> int:
     # ---- kernels on the traffic of glass and of an environment light ----------
     for n, picks in ((8, (("step2", 1, True),)),
                      (19, (("camera", 0, True), ("env_shadow_step2", 1, False)))):
-        s_n, m_n, c_n = load_scene(n, 512, 512, table_res=64, device=dev)
+        s_n, m_n, c_n = scene_at(n, 512, 512)
         ncfg = integ.RenderConfig(width=512, height=512, spp=4, max_depth=16)
         for names, c in ((FAST, ncfg),
                          (PRECISE, dataclasses.replace(ncfg, precise=True))):
-            rec = record_tile_rays(cuda_trace, integ, s_n, m_n, c_n, c)
+            rec = launches_on(
+                record_tile_rays(cuda_trace, integ, s_n, m_n, c_n, c),
+                s_n.bvh)
             for set_name, step, closest in picks:
                 name = names[0] if closest else names[1]
                 rays = rec[name][step]
@@ -494,6 +591,26 @@ def main() -> int:
                 label = f"scene{n}_{set_name}"
                 check_kernel(cuda_trace, s_n.bvh, name, {label: rays}, label)
         del rec, s_n
+
+    # ---- kernels on instanced traffic: the group launches of step 2 --------
+    # object-space rays (directions of length 1/0.75), the bound of the main
+    # soup's closest hit, the lanes outside an instance's box dead
+    for n, names in ((7, FAST), (12, PRECISE)):
+        s_n, m_n, c_n = scene_at(n, 512, 512)
+        g = s_n.instanced[0]
+        c = integ.RenderConfig(width=512, height=512, spp=4, max_depth=16,
+                               precise=names == PRECISE)
+        rec = launches_on(
+            record_tile_rays(cuda_trace, integ, s_n, m_n, c_n, c), g.bvh)
+        for name in names:
+            rays = rec[name][1]
+            n_inst = g.inv.shape[0]
+            if rays.shape[1] != n_inst * 512 * 512:
+                raise AssertionError(f"scene {n}: a group launch of {name} "
+                                     f"has {rays.shape[1]} lanes")
+            label = f"scene{n}_instances_step2"
+            check_kernel(cuda_trace, g.bvh, name, {label: rays}, label)
+        del rec
     emit("kernels", precise_over_fast=dict(
         closest=kernel_rows["closest_hit_precise"]["ms"]
         / kernel_rows["closest_hit"]["ms"],
@@ -520,7 +637,7 @@ def main() -> int:
     for n, size, strategy, expect, forbid in (
             (6, 512, "nee", PRECISE, FAST),
             (0, 256, "pt", PRECISE[:1], FAST + PRECISE[1:])):
-        s_l, m_l, c_l = load_scene(n, size, size, table_res=64, device=dev)
+        s_l, m_l, c_l = scene_at(n, size, size)
         lcfg = integ.RenderConfig(width=size, height=size, spp=4,
                                   max_depth=16, strategy=strategy,
                                   sampler="random", precise=True)
@@ -533,7 +650,7 @@ def main() -> int:
                                        (10, 1024, "mis", "sobol"),
                                        (19, 512, "mis", "sobol"),
                                        (1, 512, "nee", "sobol")):
-        s_l, m_l, c_l = load_scene(n, size, size, table_res=64, device=dev)
+        s_l, m_l, c_l = scene_at(n, size, size)
         lcfg = integ.RenderConfig(width=size, height=size, spp=4,
                                   max_depth=16, strategy=strategy,
                                   sampler=sampler)
@@ -553,11 +670,34 @@ def main() -> int:
                                      f"{rmse} > {GATE_RMSE}")
         del s_l, img
 
+    # ---- ladder: the instanced scenes, MIS + Sobol 512^2 --------------------
+    for n, modes in ((7, (False,)), (12, (False, True))):
+        s_l, m_l, c_l = scene_at(n, 512, 512)
+        imgs = {}
+        for precise in modes:
+            lcfg = integ.RenderConfig(width=512, height=512, spp=4,
+                                      max_depth=16, precise=precise)
+            phase = f"ladder_scene{n}" + ("_precise" if precise else "")
+            imgs[precise], _ = timed_render(
+                *helpers, phase, s_l, m_l, c_l, lcfg,
+                expect=PRECISE if precise else FAST,
+                forbid=FAST if precise else PRECISE)
+        if len(imgs) == 2:
+            rmse = display_rmse(imgs[True], imgs[False])
+            emit(f"ladder_scene{n}_precise", rmse_vs_fast=rmse)
+            if not rmse <= GATE_RMSE:
+                raise AssertionError(f"scene {n} precise vs fast display "
+                                     f"RMSE {rmse} > {GATE_RMSE}")
+        del imgs
+
+    # ---- progressive render and the CLI on scene 7 --------------------------
+    check_progressive_and_cli(integ, *scene_at(7, 256, 256))
+
     # ---- parity: card vs CPU plain versions, fast and precise -----------------
     pw, ph = 64, 48
-    for n, modes in ((17, (False, True)), (8, (False,)), (19, (False,))):
-        s_cpu, m_cpu, c_cpu = load_scene(n, pw, ph, table_res=64,
-                                         device="cpu")
+    for n, modes in ((17, (False, True)), (8, (False,)), (19, (False,)),
+                     (7, (False, True))):
+        s_cpu, m_cpu, c_cpu = scene_at(n, pw, ph, device="cpu")
         for precise in modes:
             pcfg = integ.RenderConfig(width=pw, height=ph, spp=2,
                                       max_depth=6, precise=precise)
@@ -574,6 +714,7 @@ def main() -> int:
                                      f"{rmse} > {GATE_RMSE} "
                                      f"(precise={precise})")
 
+    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,
              replaces=KERNELS[name][5], launches=launches[name],

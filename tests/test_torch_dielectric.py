@@ -236,6 +236,35 @@ def test_material_dispatch_with_dielectric_matches(world):
     _close(tpdf, jpdf, valid, rtol=5e-5, atol=1e-6)
 
 
+def test_sample_material_without_uc2_uc3_matches(world):
+    """A direct call that omits uc2 and uc3: both packages derive them from
+    the bits of uc (``_hash_unit``, bit for bit), so the lobe choices agree
+    lane for lane and the samples within the tolerance above."""
+    u = world["u"]
+    valid = np.asarray(world["it_j"].valid)
+    for salt in (0x9E3779B9, 0x85EBCA6B):
+        assert np.array_equal(
+            tbsdf._hash_unit(torch.from_numpy(u[3]), salt).numpy(),
+            np.asarray(jbsdf._hash_unit(jnp.asarray(u[3]), salt)))
+    jms = jbsdf.sample_material(
+        world["js"], world["jm"], world["it_j"], world["jf"], world["jwo"],
+        jnp.asarray(u[3]), jvec.V2(jnp.asarray(u[1]), jnp.asarray(u[2])),
+        world["jwl"])
+    tms = tbsdf.sample_material(
+        world["ts"], world["tm"], world["it_t"], world["tf"], world["two"],
+        torch.from_numpy(u[3]),
+        tvec.V2(torch.from_numpy(u[1]), torch.from_numpy(u[2])),
+        world["twl"])
+    for k in ("sampled", "specular"):
+        assert np.array_equal(getattr(tms, k).numpy()[valid],
+                              np.asarray(getattr(jms, k))[valid]), k
+    ok = np.asarray(jms.sampled) & valid
+    assert ok.any()
+    _close(tms.f, jms.f, ok)
+    _close(tms.pdf, jms.pdf, ok)
+    _close(tms.wi_t, jms.wi_t, ok)
+
+
 def test_refract_matches():
     rng = np.random.default_rng(3)
     n = 4096

@@ -1,7 +1,7 @@
-"""The port against the committed golden images of scenes 0, 3, 6, 8, 9
-and 10 (Lambert, textured and normal-mapped, gold, SF11 glass, plastic,
-thin plastic): all six {pt, nee, mis} x {random, sobol} combinations
-each, rendered with
+"""The port against all 42 committed golden images, of scenes 0, 3, 6, 7,
+8, 9 and 10 (Lambert, textured and normal-mapped, gold, four instanced
+gold bunnies, SF11 glass, plastic, thin plastic): all six {pt, nee, mis}
+x {random, sobol} combinations each, rendered with
 ``precise=True`` at the goldens' settings (200x150, 64 spp, depth 8,
 table_res 32, seed 0), display RMSE gate 0.01 as tests/test_goldens.py.
 
@@ -88,7 +88,7 @@ def test_png_reader_on_a_golden():
 @pytest.mark.slow
 @pytest.mark.parametrize("sampler", ["random", "sobol"])
 @pytest.mark.parametrize("strat", ["pt", "nee", "mis"])
-@pytest.mark.parametrize("sid", [0, 3, 6, 8, 9, 10],
+@pytest.mark.parametrize("sid", [0, 3, 6, 7, 8, 9, 10],
                          ids=lambda sid: f"scene{sid}")
 def test_torch_golden_matrix(sid, strat, sampler):
     path = os.path.join(GOLDEN_DIR, f"scene{sid}_{strat}_{sampler}.png")

@@ -1,15 +1,15 @@
 """The port's scene build vs the JAX package's, import hygiene, the device
 rule, and the NotImplementedError fences around what is not ported.
 
-Both packages build every scene without an instanced group with the
-pure-numpy SAH builder (the JAX one with TPT_NO_NATIVE=1), so every table
-must come out the same: integer and BVH tables exactly, float tables
-(textures and the environment's CDFs included) within 1e-6 relative (the
-rgb2spec coefficient lookup runs in float32 on both sides).  The SAH
-build is a pure function of the triangle boxes, so each package's build
-is computed once per distinct geometry in this module (ten scenes share
-the Cornell box with the bunny) and its tables are still compared for
-every scene.
+Both packages build every scene with the pure-numpy SAH builder (the JAX
+one with TPT_NO_NATIVE=1), so every table must come out the same,
+the instanced groups' included: integer and BVH tables exactly, float
+tables (textures and the environment's CDFs included) within 1e-6
+relative (the rgb2spec coefficient lookup runs in float32 on both sides).
+The SAH build is a pure function of the triangle boxes, so each package's
+build is computed once per distinct geometry in this module (ten scenes
+share the Cornell box with the bunny, three the instanced bunny) and its
+tables are still compared for every scene.
 """
 import ast
 import dataclasses
@@ -74,26 +74,37 @@ def test_scene17_tables_match_jax(scenes):
     _tables_match(*scenes)
 
 
-@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 11, 13, 15,
-                               16, 18, 19])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12,
+                               13, 14, 15, 16, 18, 19])
 def test_scene_tables_match_jax(n):
-    """Every scene without an instanced group, built by both packages: the
-    metal's eta and k bank rows (6), the glass's Sellmeier row (8, 11),
-    plastics (9, 10, 13), point lights (1, 2), textures and normal maps
-    (3, 4, 5, 15, 18), the environment map and its CDFs (19)."""
+    """Every other scene, built by both packages: the metal's eta and k
+    bank rows (6), the glass's Sellmeier row (8, 11), plastics (9, 10,
+    13), point lights (1, 2), textures and normal maps (3, 4, 5, 15, 18),
+    the environment map and its CDFs (19), the instanced groups of gold,
+    BK7 glass and plastic bunnies (7, 12, 14)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         j = jload(n, 32, 24, table_res=16)
     _tables_match(j, tload(n, 32, 24, table_res=16, device="cpu"))
 
 
+def _bvh_match(tb, jb, name):
+    n = jb.tri9.shape[0]
+    for f in ("nodes_f", "nodes_i", "tri9"):
+        _eq(getattr(tb, f), getattr(jb, f), f"{name}.{f}")
+    _eq(tb.tri_m12, np.asarray(jb.tri_m12)[:n], f"{name}.tri_m12")
+    assert tb.stack_depth == jb.stack_hint.shape[0]
+
+
 def _tables_match(j, t):
     (js, jm, jc), (ts, tm, tc) = j, t
-    n = js.bvh.tri9.shape[0]
-    for f in ("nodes_f", "nodes_i", "tri9"):
-        _eq(getattr(ts.bvh, f), getattr(js.bvh, f), f)
-    _eq(ts.bvh.tri_m12, np.asarray(js.bvh.tri_m12)[:n], "tri_m12")
-    assert ts.bvh.stack_depth == js.bvh.stack_hint.shape[0]
+    _bvh_match(ts.bvh, js.bvh, "bvh")
+    assert len(ts.instanced) == len(js.instanced)
+    for k, (tg, jg) in enumerate(zip(ts.instanced, js.instanced)):
+        _bvh_match(tg.bvh, jg.bvh, f"instanced[{k}].bvh")
+        for f in ("tri_attr", "fwd", "inv", "mat_id", "aabb_min",
+                  "aabb_max"):
+            _eq(getattr(tg, f), getattr(jg, f), f"instanced[{k}].{f}")
     for f in ("tri_attr", "tri_mat", "tri_light", "spectra", "area_tri",
               "area_tri_area", "area_tri_cdf", "world_radius", "rs_zn",
               "rs_coeffs"):
@@ -175,19 +186,15 @@ def test_outside_slice_config_raises(change, error):
 
 
 def test_outside_slice_scene_raises():
-    """What is not ported raises: the instanced scenes, an instanced group
-    from the JAX package, a material or light kind the port does not know,
-    an unknown material descriptor, instances in the builder."""
-    for n in (7, 12, 14):     # four instanced bunnies each
-        with pytest.raises(NotImplementedError):
-            tload(n, 8, 8, device="cpu")
+    """What is not ported or does not exist raises: a scene number past
+    the 20, an unknown sampler, a material or light kind the port does not
+    know, an unknown material descriptor.  (The instanced scenes and
+    groups, refused here before they were ported, are held to the JAX
+    package in tests/test_torch_instancing.py.)"""
+    with pytest.raises(ValueError):
+        tload(20, 8, 8, device="cpu")
     with pytest.raises(ValueError):
         make_sampler("halton", 0, 1, (8, 8))
-    js, jm, jc = jload(7, 8, 6, table_res=16)
-    assert js.instanced
-    with pytest.raises(NotImplementedError):
-        scene_from_numpy(as_numpy_tree(js), jm._asdict(),
-                         dataclasses.asdict(jc), device="cpu")
     with pytest.raises(NotImplementedError):
         check_ported(SceneMeta(mat_types=(7,), light_types=(0,),
                                n_tris=2, has_env=False, texture_shapes=()))
@@ -196,14 +203,13 @@ def test_outside_slice_scene_raises():
                                has_env=False, texture_shapes=()))
     with pytest.raises(NotImplementedError):
         tbuilder.SceneBuilder(table_res=16).add_material(object())
-    with pytest.raises(NotImplementedError):
-        tbuilder.SceneBuilder(table_res=16).add_instances(None, [])
 
 
-@pytest.mark.parametrize("n", [15, 19])
+@pytest.mark.parametrize("n", [7, 15, 19])
 def test_bridge_round_trip_textures_and_env(n):
     """A JAX-built scene carried over by the bridge has the tables of the
-    port's own build: textures (15), the environment map (19)."""
+    port's own build: an instanced group (7), textures (15), the
+    environment map (19)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         j = jload(n, 32, 24, table_res=16)

@@ -148,6 +148,33 @@ def test_sample_material_matches(world):
     _close(tms.wl.pdf, jms.wl.pdf)
 
 
+def test_sample_material_without_uc2_uc3_matches(world):
+    """The clearcoat batch with uc2 and uc3 omitted: both packages hash
+    them from the bits of uc (``_hash_unit``), so the lobe choices agree
+    lane for lane and the samples within TOL."""
+    it_j, it_t, jf, tf, jwo, two = _frames(world)
+    u = world["u"]
+    jms = jbsdf.sample_material(world["js"], world["jm"], it_j, jf, jwo,
+                                jnp.asarray(u[1]),
+                                jvec.V2(jnp.asarray(u[2]), jnp.asarray(u[3])),
+                                world["jwl"])
+    tms = tbsdf.sample_material(world["ts"], world["tm"], it_t, tf, two,
+                                torch.from_numpy(u[1]),
+                                tvec.V2(torch.from_numpy(u[2]),
+                                        torch.from_numpy(u[3])),
+                                world["twl"])
+    ok = np.array(jms.sampled)
+    assert np.array_equal(tms.sampled.numpy(), ok)
+    assert np.array_equal(tms.specular.numpy(), np.asarray(jms.specular))
+    assert ok.mean() > 0.5
+    for a, b in zip(tms.f.lanes, jms.f.lanes):
+        _close(a[ok], np.asarray(b)[ok])
+    _close(tms.pdf[ok], np.asarray(jms.pdf)[ok])
+    for a, b in zip(dataclasses.astuple(tms.wi_t),
+                    dataclasses.astuple(jms.wi_t)):
+        _close(a[ok], np.asarray(b)[ok])
+
+
 def test_evaluate_material_and_emission_match(world):
     it_j, it_t, jf, tf, jwo, two = _frames(world)
     rng = np.random.default_rng(1)

@@ -7,10 +7,12 @@ the same field names (``tpu_pathtracer/scene/types.py``,
 identical scene.  It imports nothing of the JAX package: the caller does
 the conversion (e.g. ``{k: np.asarray(v) for k, v in scene._asdict()}``,
 nested for ``bvh``, ``materials``, ``lights`` and ``env``; ``textures`` a
-tuple of arrays).  A scene with instanced groups is refused: they are not
-ported.
+tuple of arrays, ``instanced`` a tuple of group dicts whose ``bvh`` is a
+dict as above).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,8 +20,8 @@ import torch
 from .device import resolve_device
 from .ops.trace import BVHArrays
 from .render.camera import Camera
-from .scene.types import (EnvMap, LightTable, MaterialTable, SceneData,
-                          SceneMeta, check_ported)
+from .scene.types import (EnvMap, InstancedGroup, LightTable, MaterialTable,
+                          SceneData, SceneMeta, check_ported)
 
 
 def as_numpy_tree(obj):
@@ -27,7 +29,6 @@ def as_numpy_tree(obj):
     arrays (tuples stay tuples, None stays None), the form
     ``scene_from_numpy`` takes.  Needs no import of the producing library:
     each leaf goes through ``np.asarray``."""
-    import dataclasses
     if hasattr(obj, "_asdict"):
         return {k: as_numpy_tree(v) for k, v in obj._asdict().items()}
     if dataclasses.is_dataclass(obj):
@@ -45,8 +46,24 @@ def _t(a) -> torch.Tensor:
 
 
 def _fields(cls, table) -> dict:
-    import dataclasses
     return {f.name: _t(table[f.name]) for f in dataclasses.fields(cls)}
+
+
+def _bvh(b: dict) -> BVHArrays:
+    """The JAX package's BVH arrays -> the port's; the traversal stack
+    depth is the length of ``stack_hint``, and ``tri_m12`` loses its
+    padding rows."""
+    return BVHArrays.from_binary(
+        np.array(b["nodes_f"], np.float32), np.array(b["nodes_i"], np.int32),
+        np.array(b["tri9"], np.float32),
+        np.array(np.asarray(b["tri_m12"], np.float32)[:len(b["tri9"])]),
+        stack_depth=int(np.asarray(b["stack_hint"]).shape[0]))
+
+
+def _group(g: dict) -> InstancedGroup:
+    return InstancedGroup(bvh=_bvh(g["bvh"]), **{
+        f.name: _t(g[f.name]) for f in dataclasses.fields(InstancedGroup)
+        if f.name != "bvh"})
 
 
 def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
@@ -54,26 +71,19 @@ def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
 
     arrays: SceneData fields; ``bvh``, ``materials``, ``lights`` and
     ``env`` (or None) are dicts of their own fields, ``textures`` a tuple
-    of (H, W, C) arrays.  The BVH's traversal stack depth is the
-    length of ``bvh["stack_hint"]`` (the JAX package carries it in that
-    array's shape).  meta / camera: the SceneMeta / Camera fields."""
+    of (H, W, C) arrays, ``instanced`` a tuple of InstancedGroup dicts.
+    The BVH's traversal stack depth is the length of ``bvh["stack_hint"]``
+    (the JAX package carries it in that array's shape).  meta / camera:
+    the SceneMeta / Camera fields."""
     dev = resolve_device(device)
     m = SceneMeta(**{k: (tuple(tuple(s) for s in v)
                          if k == "texture_shapes" else
                          tuple(v) if isinstance(v, (list, tuple)) else v)
                      for k, v in meta.items()})
     check_ported(m)
-    if len(arrays.get("instanced", ())):
-        raise NotImplementedError("instanced groups are not ported yet")
     env = arrays.get("env")
-    b = arrays["bvh"]
-    bvh = BVHArrays.from_binary(
-        np.array(b["nodes_f"], np.float32), np.array(b["nodes_i"], np.int32),
-        np.array(b["tri9"], np.float32),
-        np.array(np.asarray(b["tri_m12"], np.float32)[:len(b["tri9"])]),
-        stack_depth=int(np.asarray(b["stack_hint"]).shape[0]))
     data = SceneData(
-        bvh=bvh,
+        bvh=_bvh(arrays["bvh"]),
         tri_attr=_t(arrays["tri_attr"]),
         tri_mat=_t(arrays["tri_mat"]),
         tri_light=_t(arrays["tri_light"]),
@@ -88,6 +98,7 @@ def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
         world_radius=_t(arrays["world_radius"]),
         rs_zn=_t(arrays["rs_zn"]),
         rs_coeffs=_t(arrays["rs_coeffs"]),
+        instanced=tuple(_group(g) for g in arrays.get("instanced", ())),
     )
     cam = Camera(position=tuple(float(x) for x in camera["position"]),
                  direction=tuple(float(x) for x in camera["direction"]),

@@ -1,7 +1,9 @@
 """Ray traversal front end: closest hit and occlusion for (R,) ray lanes.
 
-Counterpart of ``tpu_pathtracer/ops/trace.py`` for the main triangle soup.
-On a CUDA device the queries run the hand-written kernels of
+Counterpart of ``tpu_pathtracer/ops/trace.py``: queries of one BVH, and the
+scene queries over the main triangle soup and its instanced groups (each
+group one launch over all its instances' lanes).  On a CUDA device the
+queries run the hand-written kernels of
 ``ops/cuda_trace.py``: K1, K3 and K2p walk the 4-wide tree of
 ``widen_bvh``, a warp's lanes sharing the work of its rays (K2p ends a ray
 for all its lanes at its first hit), K2 walks the binary tree, one thread
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils.math import intersect_triangle
+from ..utils.vec import V3
 from . import cuda_trace
 
 BIG_T = 3.0e38
@@ -265,19 +268,100 @@ def intersect_p(bvh: BVHArrays, ray_o, ray_d, t_max, active=None,
     return kernel(bvh, rays)
 
 
+def _inst_rays(group, o3: V3, d3: V3):
+    """The rays in every instance's object space, stacked instance by
+    instance -> (V3, V3) of (I*R,).  Directions stay unnormalized, so the
+    ray parameter t is the same in object and render space."""
+    m = group.inv
+
+    def lin(v, c, off=None):
+        out = (m[:, c:c + 1] * v.x + m[:, c + 1:c + 2] * v.y
+               + m[:, c + 2:c + 3] * v.z)
+        return out if off is None else out + m[:, off:off + 1]
+    o = V3(lin(o3, 0, 9).reshape(-1), lin(o3, 3, 10).reshape(-1),
+           lin(o3, 6, 11).reshape(-1))
+    d = V3(lin(d3, 0).reshape(-1), lin(d3, 3).reshape(-1),
+           lin(d3, 6).reshape(-1))
+    return o, d
+
+
+def _inst_active(group, o3: V3, d3: V3, t_bound, active):
+    """Per-instance world-AABB cull of the render-space rays -> (I*R,)
+    bool.  The slab arithmetic is the JAX package's: ``maximum`` and
+    ``minimum`` propagate a NaN (0 * inf on an axis-parallel ray whose
+    origin lies on a box plane), which then fails every compare."""
+    n_inst = group.inv.shape[0]
+    tn = torch.full((n_inst, o3.x.shape[0]), float("-inf"),
+                    dtype=o3.x.dtype, device=o3.x.device)
+    tf = torch.full_like(tn, float("inf"))
+    for a, (oc, dc) in enumerate(((o3.x, d3.x), (o3.y, d3.y),
+                                  (o3.z, d3.z))):
+        inv = 1.0 / dc
+        lo = (group.aabb_min[:, a:a + 1] - oc) * inv
+        hi = (group.aabb_max[:, a:a + 1] - oc) * inv
+        tn = torch.maximum(tn, torch.minimum(lo, hi))
+        tf = torch.minimum(tf, torch.maximum(lo, hi))
+    hit = (tn <= tf) & (tf > 0.0) & (tn < t_bound)
+    if active is not None:
+        hit = hit & active
+    return hit.reshape(-1)
+
+
 def intersect_scene(scene, ray_o, ray_d, t_max=BIG_T, active=None,
                     precise: bool = False) -> Hit:
-    """Closest hit against the scene's main soup (the port has no
-    instanced groups)."""
-    return intersect(scene.bvh, ray_o, ray_d, t_max, active=active,
+    """Closest hit against the main soup and every instanced group.
+
+    Each group is one launch over all its I x R lanes, bounded by the
+    closest hit so far (never beyond ``t_max``), the lanes outside an
+    instance's world AABB dead.  Instances are reduced in order with a
+    strict ``<``; a group hit has the composite id ``base + i * Tc + tri``
+    (``scene.types.InstancedGroup``)."""
+    best = intersect(scene.bvh, ray_o, ray_d, t_max, active=active,
                      precise=precise)
+    r = ray_o.x.shape[0]
+    base = scene.bvh.tri9.shape[0]
+    t0 = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                            device=ray_o.x.device), (r,))
+    for g in scene.instanced:
+        n_inst = g.inv.shape[0]
+        tc = g.bvh.tri9.shape[0]
+        # a miss carries t = BIG_T: the caller's bound caps it
+        bound = torch.minimum(best.t, t0)
+        o_all, d_all = _inst_rays(g, ray_o, ray_d)
+        act = _inst_active(g, ray_o, ray_d, bound, active)
+        h = intersect(g.bvh, o_all, d_all, bound.repeat(n_inst), active=act,
+                      precise=precise)
+        for i in range(n_inst):
+            hi = Hit(*(x[i * r:(i + 1) * r] for x in h))
+            better = hi.hit & (hi.t < best.t)
+            best = Hit(t=torch.where(better, hi.t, best.t),
+                       tri=torch.where(better, base + i * tc + hi.tri,
+                                       best.tri),
+                       b1=torch.where(better, hi.b1, best.b1),
+                       b2=torch.where(better, hi.b2, best.b2),
+                       hit=best.hit | better)
+        base += n_inst * tc
+    return best
 
 
 def intersect_p_scene(scene, ray_o, ray_d, t_max, active=None,
                       precise: bool = False):
-    """Occlusion against the scene's main soup."""
-    return intersect_p(scene.bvh, ray_o, ray_d, t_max, active=active,
-                       precise=precise)
+    """Occlusion against the main soup and every instanced group: one
+    launch per group, even when none of its lanes is live; the lanes of
+    rays already occluded go in inactive."""
+    occ = intersect_p(scene.bvh, ray_o, ray_d, t_max, active=active,
+                      precise=precise)
+    t0 = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                            device=ray_o.x.device),
+                            occ.shape)
+    for g in scene.instanced:
+        n_inst = g.inv.shape[0]
+        o_all, d_all = _inst_rays(g, ray_o, ray_d)
+        act = _inst_active(g, ray_o, ray_d, t0, active) & ~occ.repeat(n_inst)
+        o_i = intersect_p(g.bvh, o_all, d_all, t0.repeat(n_inst), active=act,
+                          precise=precise)
+        occ = occ | o_i.reshape(n_inst, -1).any(0)
+    return occ
 
 
 def intersect_brute(p0, p1, p2, ray_o, ray_d, t_max=BIG_T) -> Hit:

@@ -26,10 +26,12 @@ from ..scene.types import (MAT_CLEARCOAT, MAT_EMISSIVE, MAT_GLASS,
 from ..spectrum import grid as sgrid
 from ..spectrum import rgb2spec
 from ..spectrum.sampled import SampledWavelengths, terminate_secondary
+from ..utils.math import M32
 from ..utils.vec import (Frame, S4, V2, V3, dot3, from_frame, make_frame,
                          normalize3, s4_mean, sel, smap, to_frame)
 from . import microfacet as mf
 from . import texture as tex_mod
+from .sampler import _fmix32
 
 INV_PI = 1.0 / math.pi
 SMOOTH_ALPHA = 1e-3   # effectively-smooth threshold
@@ -47,6 +49,15 @@ class MaterialSample(NamedTuple):
 # ---------------------------------------------------------------------------
 # Shared helpers
 # ---------------------------------------------------------------------------
+
+def _hash_unit(u, salt: int):
+    """A uniform draw from the bits of the float32 draw u, for a caller
+    that omits uc2/uc3: the MurmurHash3 finalizer of bits(u) ^ salt, as a
+    float in [0, 1] (the JAX package's ``_hash_unit``, bit for bit)."""
+    bits = u.to(torch.float32).view(torch.int32).to(torch.int64) & M32
+    h = _fmix32(bits ^ salt)
+    return h.to(torch.float32) * (2.0 ** -32)
+
 
 def _bank_eval(scene, row, wl) -> S4:
     """Spectra-bank row at the path wavelengths (needs ``wl.bank``)."""
@@ -636,11 +647,16 @@ def _opaque(mat_type):
 
 
 def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
-                    wl, uc2, uc3) -> MaterialSample:
+                    wl, uc2=None, uc3=None) -> MaterialSample:
     """Batched material sample over all rays.
 
     uc / uc2 / uc3: independent 1-D draws for up to three sequential lobe
-    decisions; uv2: the 2-D lobe sample."""
+    decisions; uv2: the 2-D lobe sample.  The integrators pass sampler
+    dims; a caller that omits uc2/uc3 gets bit hashes of uc."""
+    if uc2 is None:
+        uc2 = _hash_unit(uc, 0x9E3779B9)
+    if uc3 is None:
+        uc3 = _hash_unit(uc, 0x85EBCA6B)
     kinds = set(meta.present_mat_kinds)
     r = uc.shape[0]
     mat_type = _mat_type(scene, it)

@@ -4,14 +4,16 @@ Counterpart of ``tpu_pathtracer/scene/builder.py``: the material
 descriptors (Lambert, Metal, Glass, Plastic, Pbr, Clearcoat, Emissive),
 textures decoded once at build, area lights from emissive meshes, point,
 spot and directional lights, and one environment light with its
-two-stage sampling CDFs.  Instanced meshes raise ``NotImplementedError``.
+two-stage sampling CDFs, and instanced meshes (one stored copy under I
+affine instances).
 
 ``build(camera_position)`` bakes all meshes into one triangle soup in
 render space (world minus camera position), reorders it by one SAH BVH
-(the pure-numpy builder), and packs the material, light and spectra
-tables.  Spectra-bank row 0 is always the normalized D65.  The tables are
-numpy computed as the JAX package computes them, so that both packages
-build the same scene.
+(the pure-numpy builder), builds each instanced mesh's object-space soup
+and BVH once, and packs the material, light and spectra tables.
+Spectra-bank row 0 is always the normalized D65.  The tables are numpy
+computed as the JAX package computes them, so that both packages build the
+same scene.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from ..ops.trace import pack_bvh
 from .types import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_ENV, LIGHT_POINT,
                     LIGHT_SPOT, MAT_CLEARCOAT, MAT_EMISSIVE, MAT_GLASS,
                     MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_PLASTIC, EnvMap,
-                    LightTable, MaterialTable, SceneData, SceneMeta)
+                    InstancedGroup, LightTable, MaterialTable, SceneData,
+                    SceneMeta)
 
 
 @dataclasses.dataclass
@@ -155,6 +158,7 @@ class SceneBuilder:
         self.gamut = by_name(gamut)
         self._materials: List[MaterialDesc] = []
         self._meshes: List[Tuple[Mesh, int]] = []
+        self._instanced: List[Tuple[Mesh, List[Tuple[np.ndarray, int]]]] = []
         self._delta_lights: List[dict] = []
         self._env: Optional[dict] = None
         self._textures: List[Texture] = []
@@ -174,7 +178,17 @@ class SceneBuilder:
         self._meshes.append((mesh, material))
 
     def add_instances(self, mesh: Mesh, instances) -> None:
-        raise NotImplementedError("instanced meshes are not ported yet")
+        """One mesh shared by many (4x4 transform, material) instances: its
+        triangles and BVH are stored once, each instance adds an affine and
+        a material row.  Emissive instance materials are refused (area
+        lights are sampled on the main soup only)."""
+        insts = [(np.asarray(t, np.float64), int(m)) for t, m in instances]
+        if not insts:
+            raise ValueError("add_instances needs at least one instance")
+        for _, m in insts:
+            if isinstance(self._materials[m], Emissive):
+                raise ValueError("instanced meshes cannot be emissive")
+        self._instanced.append((mesh, insts))
 
     def add_triangle(self, p0, p1, p2, material: int) -> None:
         """A single-triangle primitive, its tangent along the first edge."""
@@ -401,8 +415,16 @@ class SceneBuilder:
         P, N, UV, TAN, MATID, PRIM = P[o], N[o], UV[o], TAN[o], MATID[o], PRIM[o]
         bvh = pack_bvh(fb, P)
 
-        # world bounding sphere (directional and env power, env distance)
+        built = [self._build_group(mesh, insts, cam_pos)
+                 for mesh, insts in self._instanced]
+        groups = [g for g, _, _ in built]
+
+        # world bounding sphere (directional and env power, env distance),
+        # the instances' world AABBs (float64, before rounding) included
         lo, hi = P.reshape(-1, 3).min(0), P.reshape(-1, 3).max(0)
+        if built:
+            lo = np.minimum(lo, np.concatenate([b[1] for b in built]).min(0))
+            hi = np.maximum(hi, np.concatenate([b[2] for b in built]).max(0))
         world_radius = float(np.linalg.norm(hi - lo) / 2.0) or 1.0
 
         # area lights: one per emissive-material primitive
@@ -547,6 +569,7 @@ class SceneBuilder:
             world_radius=t(world_radius, np.float32),
             rs_zn=t(zn),
             rs_coeffs=t(coeffs),
+            instanced=tuple(groups),
         )
         meta = SceneMeta(
             mat_types=tuple(int(x) for x in mt["mat_type"]),
@@ -559,3 +582,49 @@ class SceneBuilder:
             has_emission_tex=bool((mt["emission_tex"] >= 0).any()),
         )
         return data, meta
+
+    @staticmethod
+    def _build_group(mesh: Mesh, insts, cam_pos):
+        """The canonical object-space soup ordered by its own SAH BVH, its
+        attribute rows, and per instance the render-space affine rows
+        (``fwd``, ``inv``; the translation made camera-relative) and the
+        world AABB of the 8 transformed corners of the mesh's box.
+        -> (InstancedGroup, AABB lows (I, 3) f64, AABB highs (I, 3) f64)."""
+        idx = mesh.indices
+        P = mesh.positions[idx].astype(np.float64)
+        N = mesh.normals[idx].astype(np.float32)
+        UV = mesh.uvs[idx].astype(np.float32)
+        TAN = mesh.tangents.astype(np.float32)
+        fb = build_bvh(P.min(1), P.max(1))
+        o = fb.order
+        P, N, UV, TAN = P[o], N[o], UV[o], TAN[o]
+        gbvh = pack_bvh(fb, P.astype(np.float32))
+        attr = np.concatenate(
+            [N.reshape(len(P), 9), UV.reshape(len(P), 6), TAN],
+            axis=1).astype(np.float32)
+        lo_o = P.reshape(-1, 3).min(0)
+        hi_o = P.reshape(-1, 3).max(0)
+        corners = np.array([[x, y, z]
+                            for x in (lo_o[0], hi_o[0])
+                            for y in (lo_o[1], hi_o[1])
+                            for z in (lo_o[2], hi_o[2])])
+        fwd, inv, mats, g_lo, g_hi = [], [], [], [], []
+        for t4, m in insts:
+            a = t4[:3, :3]
+            tr = t4[:3, 3] - cam_pos               # render space
+            ai = np.linalg.inv(a)
+            fwd.append(np.concatenate([a.reshape(9), tr]))
+            inv.append(np.concatenate([ai.reshape(9), -ai @ tr]))
+            mats.append(m)
+            wc = corners @ a.T + tr
+            g_lo.append(wc.min(0))
+            g_hi.append(wc.max(0))
+
+        def f32(rows):
+            return torch.from_numpy(np.asarray(np.stack(rows), np.float32))
+        group = InstancedGroup(
+            bvh=gbvh, tri_attr=torch.from_numpy(attr),
+            fwd=f32(fwd), inv=f32(inv),
+            mat_id=torch.from_numpy(np.asarray(mats, np.int32)),
+            aabb_min=f32(g_lo), aabb_max=f32(g_hi))
+        return group, np.stack(g_lo), np.stack(g_hi)

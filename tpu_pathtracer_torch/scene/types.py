@@ -3,8 +3,9 @@
 Counterpart of ``tpu_pathtracer/scene/types.py``, with the same field
 names.  ``SceneData`` and its tables are frozen dataclasses of tensors with
 ``.to(device)``; ``SceneMeta`` is a small hashable record of static facts.
-The port carries the main triangle soup, its textures and the
-environment map; instanced groups are not ported.
+The port carries the main triangle soup, its textures, the environment
+map and the instanced groups (one object-space mesh under I affine
+instances each).
 """
 from __future__ import annotations
 
@@ -112,6 +113,27 @@ class EnvMap(_Tensors):
 
 
 @dataclasses.dataclass(frozen=True)
+class InstancedGroup(_Tensors):
+    """One canonical mesh shared by I transformed instances.
+
+    The mesh is stored once, in object space, with its own BVH; a query
+    transforms the rays into every instance's object space (directions
+    left unnormalized, so t is the render-space ray parameter) and traces
+    all I x R lanes in one kernel launch, lanes outside an instance's world
+    AABB dead.  A hit in the group has the composite triangle id
+    ``base + inst * Tc + tri`` past the main soup (``render/surface.py``
+    decodes it).  Instances are never emissive (the builder refuses it).
+    """
+    bvh: BVHArrays               # canonical object-space mesh
+    tri_attr: torch.Tensor       # (Tc, 18) canonical shading attributes
+    fwd: torch.Tensor            # (I, 12) object->render affine rows [A|t]
+    inv: torch.Tensor            # (I, 12) render->object affine rows [A|t]
+    mat_id: torch.Tensor         # (I,) i32 material row per instance
+    aabb_min: torch.Tensor       # (I, 3) render-space instance AABB
+    aabb_max: torch.Tensor       # (I, 3)
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneData(_Tensors):
     """Everything the integrator needs, as tensors."""
     bvh: BVHArrays
@@ -131,6 +153,7 @@ class SceneData(_Tensors):
     world_radius: torch.Tensor   # () f32
     rs_zn: torch.Tensor          # (res,) rgb2spec z nodes
     rs_coeffs: torch.Tensor      # (3, res, res, res, 3)
+    instanced: Tuple[InstancedGroup, ...] = ()
 
     @property
     def device(self) -> torch.device:
@@ -158,8 +181,7 @@ class SceneMeta(NamedTuple):
 
 def check_ported(meta: SceneMeta) -> None:
     """Raise NotImplementedError for a material or light kind the port
-    does not know.  (Instanced groups, the one scene feature not ported,
-    live in the scene data: the builder and the bridge refuse them.)"""
+    does not know."""
     unknown = sorted(set(meta.mat_types) - set(MAT_NAMES))
     if unknown:
         raise NotImplementedError(f"material kinds {unknown} are not ported")

@@ -1,9 +1,8 @@
 """Demo scenes (counterpart of ``tpu_pathtracer/scenes/__init__.py``).
 
-Every scene without an instanced group is ported: 0-6, 8-11, 13 and
-15-19.  Scenes 7, 12 and 14 (four instanced bunnies) are not, and
-``load_scene`` raises ``NotImplementedError`` for them.  The procedural
-textures and the sky are numpy, as in the JAX package.
+All 20 scenes; 7, 12 and 14 hold four instanced bunnies each (one stored
+copy of the mesh under four affines).  The procedural textures and the
+sky are numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -40,8 +39,7 @@ def load_scene(n: int, width: int, height: int, table_res: int = 64,
     """Build scene n on ``device`` (None: the GPU, raising if there is
     none).  Returns (SceneData, SceneMeta, Camera)."""
     if n not in _REGISTRY:
-        raise NotImplementedError(
-            f"scene {n} is not ported yet (ported: {available_scenes()})")
+        raise ValueError(f"no scene {n} (available: {available_scenes()})")
     dev = resolve_device(device)
     cam = default_camera(width, height, fov=45.0)
     cam = cam.look_to(CAMERA_POS, CAMERA_DIR)
@@ -189,6 +187,33 @@ def scene_6(sb: SceneBuilder, cam):
     return cam
 
 
+def _four_on_floor(sb: SceneBuilder, materials, scale=0.75, flatten=False):
+    """Four small bunnies left to right, one material each.  Instanced:
+    the bunny's triangles and BVH are stored once under four affines;
+    ``flatten=True`` adds four transformed copies to the main soup
+    instead (the instancing tests render both)."""
+    xs = [-1.3, -0.5, 0.3, 1.1]
+    bun = mesh.bunny()
+    lo = bun.positions.min(0)
+    ts = [translate(x, -lo[1] * scale, -0.5) @ np.diag([scale] * 3 + [1.0])
+          for x in xs]
+    if flatten:
+        for t, mat in zip(ts, materials):
+            sb.add_mesh(bun, mat, t)
+    else:
+        sb.add_instances(bun, list(zip(ts, materials)))
+
+
+@register(7)
+def scene_7(sb: SceneBuilder, cam):
+    """Four gold bunnies, roughness 0.05, 0.25, 0.5, 0.75."""
+    add_cornell_box(sb)
+    mats = [sb.add_material(Metal(kind="gold", roughness=r))
+            for r in (0.05, 0.25, 0.5, 0.75)]
+    _four_on_floor(sb, mats)
+    return cam
+
+
 @register(8)
 def scene_8(sb: SceneBuilder, cam):
     """Smooth SF11 glass bunny."""
@@ -218,10 +243,33 @@ def scene_11(sb: SceneBuilder, cam):
     return cam
 
 
+@register(12)
+def scene_12(sb: SceneBuilder, cam):
+    """Four BK7 glass bunnies, roughness 0.05, 0.25, 0.5, 0.75."""
+    add_cornell_box(sb)
+    mats = [sb.add_material(Glass(kind="bk7", roughness=r))
+            for r in (0.05, 0.25, 0.5, 0.75)]
+    _four_on_floor(sb, mats)
+    return cam
+
+
 @register(13)
 def scene_13(sb: SceneBuilder, cam):
     """Colored plastic bunny (linear rgb (0.4, 0.9, 1.0), eta 1.5)."""
     _bunny_scene(sb, Plastic(color=(0.4, 0.9, 1.0), eta=1.5, roughness=0.0))
+    return cam
+
+
+@register(14)
+def scene_14(sb: SceneBuilder, cam):
+    """Four colored plastic bunnies, roughness 0.05, 0.1, 0.3, 0.5."""
+    add_cornell_box(sb)
+    colors = [(1.0, 0.5, 0.5), (0.5, 1.0, 0.5), (0.5, 0.5, 1.0),
+              (1.0, 0.8, 0.4)]
+    roughs = (0.05, 0.1, 0.3, 0.5)
+    mats = [sb.add_material(Plastic(color=c, eta=1.5, roughness=r))
+            for c, r in zip(colors, roughs)]
+    _four_on_floor(sb, mats)
     return cam
 
 

@@ -32,6 +32,16 @@ def scale_translate(s, x, y, z) -> np.ndarray:
     return m
 
 
+def rotate_y(deg) -> np.ndarray:
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    m = np.eye(4)
+    m[0, 0] = c
+    m[0, 2] = s
+    m[2, 0] = -s
+    m[2, 2] = c
+    return m
+
+
 def add_cornell_box(sb: SceneBuilder, white=(0.8, 0.8, 0.8),
                     left=(0.9, 0.0, 0.0), right=(0.0, 0.9, 0.0),
                     light_intensity: float = 10.0,
