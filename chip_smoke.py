@@ -82,6 +82,30 @@ line per phase; any failed check raises and the script exits non-zero.
   parity   scene 17 at 64x48, 2 spp, depth 6 on the card and on the CPU
            (plain versions), fast and precise; scenes 8 and 19 the same,
            fast, and scene 7 fast and precise: display RMSE <= 0.01 each.
+  train    the differentiable pass (``tpu_pathtracer_torch.parallel``).
+           grad_step: bench.py's grad rung, one ``loss_and_grads`` call on
+           scene 17 at 128x128, 2 spp, depth 8, MIS + Z-Sobol against an
+           all-zero target, timed as bench.py's ``child_grad`` times it (a
+           first call, then the timed call; ``first_call_extra_s`` is the
+           difference), fast and precise: the loss, the count of finite
+           gradient values (must be all of them), the peak device memory
+           of the timed call, and its launches, exact: the lockstep tile
+           launches K1 (K3 precise) 2 x (1 + 8) = 18 times and K2 (K2p)
+           2 x 8 = 16 times, the other pair never; the forward alone
+           (no autograd) launches the same, so the backward launches none.
+           adam: the target is scene 17's linear render (``render_accum``
+           / spp) at the same size and spp, NEE at one bounce (where the
+           gradient is exact); from the dragon's base and coat tint
+           coefficients moved off, five ``train_step_adam`` steps (lr 0.02)
+           and the loss at the end: the loss falls on at least four of the
+           five steps and ends below the first; a checkpoint saved after
+           step 3, loaded with ``TrainState.load`` and run to step 5, lands
+           on the uninterrupted run's params within 1e-6 + 1e-5 relative
+           (``bit_exact`` says whether it is exact).
+           grad_parity: scene 17 at 32x24, 1 spp, depth 3, fast and
+           precise, ``loss_and_grads`` on the card against the CPU's plain
+           versions: loss within 1e-3 relative, each gradient column
+           within 1e-2 of its largest magnitude.
 
 Before its last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  It exits non-zero, with
@@ -95,6 +119,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -446,7 +471,6 @@ def check_progressive_and_cli(integ, scene, meta, cam):
     tests/test_progressive.py), then a resume from the checkpoint of the
     first chunk; and the CLI as a subprocess, which must exit 0 and write
     its PNG."""
-    import tempfile
     from tpu_pathtracer_torch.render.progressive import render_progressive
 
     cfg = integ.RenderConfig(width=256, height=256, spp=4, max_depth=16)
@@ -493,6 +517,147 @@ def check_progressive_and_cli(integ, scene, meta, cam):
              seconds=time.perf_counter() - t0)
         if proc.returncode != 0 or size == 0:
             raise AssertionError(f"the CLI failed: {proc.stderr[-2000:]}")
+
+
+GRAD_SIZE, GRAD_SPP, GRAD_DEPTH = 128, 2, 8
+ADAM_LR = 0.02
+
+
+def check_train(integ, cuda_trace, scene_at, dev):
+    """The train phase: grad_step (fast and precise), adam, grad_parity.
+    Returns the grad step's launches, fast and precise."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
+
+    size = GRAD_SIZE
+    scene, meta, cam = scene_at(17, size, size)
+    cfg = integ.RenderConfig(width=size, height=size, spp=GRAD_SPP,
+                             max_depth=GRAD_DEPTH)
+    zero = torch.zeros((size * size, 3), device=dev)
+    params = parallel.extract_params(scene)
+    n_values = sum(v.numel() for v in params.values())
+    grad_launches = {}
+    for names, other in ((FAST, PRECISE), (PRECISE, FAST)):
+        c = dataclasses.replace(cfg, precise=names == PRECISE)
+        want = {names[0]: c.spp * (1 + c.max_depth),
+                names[1]: c.spp * c.max_depth,
+                **{k: 0 for k in (*other, *V1)}}
+
+        def step():
+            loss, grads = parallel.loss_and_grads(params, scene, meta, cam,
+                                                  c, zero)
+            return float(loss), grads
+
+        t0 = time.perf_counter()
+        step()
+        first_s = time.perf_counter() - t0
+        # the forward alone, without autograd
+        px = integ._pixel_grid(size, size, dev)
+        cuda_trace.reset_launch_counts()
+        with torch.no_grad():
+            parallel._accum_linear(scene, meta, cam,
+                                   dataclasses.replace(c, early_exit=False),
+                                   px)
+        torch.cuda.synchronize()
+        forward = {k: cuda_trace.LAUNCHES[k] for k in want}
+        torch.cuda.reset_peak_memory_stats()
+        cuda_trace.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = {k: cuda_trace.LAUNCHES[k] for k in want}
+        finite = sum(int(torch.isfinite(g).sum()) for g in grads.values())
+        emit("train", sub="grad_step", scene=17, width=size, height=size,
+             spp=c.spp, max_depth=c.max_depth, precise=bool(c.precise),
+             step_s=step_s, first_call_extra_s=first_s - step_s, loss=loss,
+             finite_grad_values=finite, grad_values=n_values,
+             peak_mem_bytes=torch.cuda.max_memory_allocated(),
+             launches=launches, forward_launches=forward)
+        if launches != want or forward != want:
+            raise AssertionError(f"grad_step: launches {launches}, forward "
+                                 f"alone {forward}, expected {want}")
+        if finite != n_values or not loss > 0.0:
+            raise AssertionError(f"grad_step: {n_values - finite} gradient "
+                                 f"values not finite, loss {loss}")
+        grad_launches[bool(c.precise)] = launches
+
+    # ---- adam: fit the dragon's colours back to the render as built -------
+    # NEE at one bounce, where the loss is a smooth function of every
+    # column and autodiff its exact derivative (tests/test_grad.py's
+    # one-bounce gates); at depth 8 the attached VNDF sample makes the
+    # roughness gradient a poor guide, and Adam steps every coordinate by
+    # the learning rate whatever its gradient's size (PERF.md)
+    t0 = time.perf_counter()
+    acfg = dataclasses.replace(cfg, strategy="nee", max_depth=1)
+    target = integ.render_accum(scene, meta, cam, acfg) / acfg.spp
+    row = int(torch.nonzero(scene.materials.mat_type == MAT_CLEARCOAT)[0])
+    nudge = torch.zeros_like(scene.materials.base_coeff)
+    nudge[row, 2] = -2.0
+    start = parallel.merge_params(scene, {
+        "base_coeff": scene.materials.base_coeff + nudge,
+        "coat_tint_coeff": scene.materials.coat_tint_coeff + 1.5 * nudge})
+    state = parallel.make_train_state(start, lr=ADAM_LR)
+    losses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "train.npz")
+        for k in range(5):
+            state, loss = parallel.train_step_adam(state, scene, meta, cam,
+                                                   acfg, target)
+            losses.append(float(loss))
+            if k == 2:
+                state.save(ckpt)
+        losses.append(float(parallel.loss_and_grads(
+            state.params, scene, meta, cam, acfg, target)[0]))
+        resumed = parallel.TrainState.load(ckpt, scene)
+        for _ in range(2):
+            resumed, _ = parallel.train_step_adam(resumed, scene, meta, cam,
+                                                  acfg, target)
+    diff = {k: float((resumed.params[k] - v).abs().max())
+            for k, v in state.params.items()}
+    exact = all(torch.equal(resumed.params[k], v)
+                for k, v in state.params.items())
+    close = all(bool(((resumed.params[k] - v).abs()
+                      <= 1e-6 + 1e-5 * v.abs()).all())
+                for k, v in state.params.items())
+    drops = sum(b < a for a, b in zip(losses, losses[1:]))
+    emit("train", sub="adam", scene=17, width=size, height=size,
+         spp=acfg.spp, max_depth=acfg.max_depth, strategy=acfg.strategy,
+         lr=ADAM_LR, losses=losses,
+         drops=drops, resumed_step=resumed.step, resume_max_abs_diff=diff,
+         bit_exact=exact, seconds=time.perf_counter() - t0)
+    if drops < 4 or not losses[-1] < losses[0]:
+        raise AssertionError(f"adam: the loss did not fall: {losses}")
+    if resumed.step != 5 or not close:
+        raise AssertionError(f"adam: the resumed run differs: {diff}")
+
+    # ---- grad_parity: the card against the CPU's plain versions ------------
+    pw, ph = 32, 24
+    s_cpu, m_cpu, c_cpu = scene_at(17, pw, ph, device="cpu")
+    s_gpu = s_cpu.to(dev)
+    for precise in (False, True):
+        t0 = time.perf_counter()
+        pcfg = integ.RenderConfig(width=pw, height=ph, spp=1, max_depth=3,
+                                  precise=precise)
+        z = torch.zeros((pw * ph, 3))
+        l_gpu, g_gpu = parallel.loss_and_grads(
+            parallel.extract_params(s_gpu), s_gpu, m_cpu, c_cpu, pcfg, z)
+        l_cpu, g_cpu = parallel.loss_and_grads(
+            parallel.extract_params(s_cpu), s_cpu, m_cpu, c_cpu, pcfg, z,
+            device="cpu")
+        l_gpu, l_cpu = float(l_gpu), float(l_cpu)
+        rel = {k: float((g_gpu[k].cpu() - g).abs().max()
+                        / max(float(g.abs().max()), 1e-30))
+               for k, g in g_cpu.items()}
+        emit("train", sub="grad_parity", scene=17, width=pw, height=ph,
+             spp=1, max_depth=3, precise=precise, loss_gpu=l_gpu,
+             loss_cpu=l_cpu, loss_rel_err=abs(l_gpu - l_cpu) / l_cpu,
+             grad_err_over_column_max=rel, seconds=time.perf_counter() - t0)
+        if not abs(l_gpu - l_cpu) <= 1e-3 * l_cpu or max(rel.values()) > 1e-2:
+            raise AssertionError(f"grad_parity: card vs CPU differ "
+                                 f"(precise={precise}): loss {l_gpu} vs "
+                                 f"{l_cpu}, gradients {rel}")
+    return grad_launches
 
 
 def main() -> int:
@@ -713,6 +878,9 @@ def main() -> int:
                 raise AssertionError(f"scene {n}: card vs CPU display RMSE "
                                      f"{rmse} > {GATE_RMSE} "
                                      f"(precise={precise})")
+
+    # ---- train: the differentiable pass ---------------------------------------
+    check_train(integ, cuda_trace, scene_at, dev)
 
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [

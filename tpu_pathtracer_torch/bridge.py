@@ -8,7 +8,10 @@ identical scene.  It imports nothing of the JAX package: the caller does
 the conversion (e.g. ``{k: np.asarray(v) for k, v in scene._asdict()}``,
 nested for ``bvh``, ``materials``, ``lights`` and ``env``; ``textures`` a
 tuple of arrays, ``instanced`` a tuple of group dicts whose ``bvh`` is a
-dict as above).
+dict as above).  ``params_from_numpy`` does the same for the trainable
+material columns of the differentiable pass (``parallel.extract_params``);
+a ``parallel.TrainState`` checkpoint of either package loads in the other
+as it is.
 """
 from __future__ import annotations
 
@@ -106,3 +109,11 @@ def scene_from_numpy(arrays: dict, meta: dict, camera: dict, device=None):
                  fov=float(camera["fov"]), width=int(camera["width"]),
                  height=int(camera["height"]))
     return data.to(dev), m, cam
+
+
+def params_from_numpy(params: dict, device=None) -> dict:
+    """The JAX package's ``parallel.extract_params(scene)`` as numpy arrays
+    -> the port's params, {column: tensor} on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(dev)
+            for k, v in params.items()}

@@ -9,7 +9,8 @@ queries run the hand-written kernels of
 for all its lanes at its first hit), K2 walks the binary tree, one thread
 a ray; on the CPU they run those kernels' plain PyTorch versions.  The JAX package's
 TPU-only machinery (block culling, coherence sort, chunking past
-MAX_DENSE_TRIS, the custom-vjp detachment) has no counterpart here.
+MAX_DENSE_TRIS) has no counterpart here; the custom-VJP detachment of a
+hit is ``_Detached``.
 
 ``precise`` is an explicit argument of every query (there is no global
 switch and no environment default): False runs the fast unit-triangle
@@ -250,22 +251,43 @@ def pack_rays(ray_o, ray_d, t_max, active=None):
                         ray_d.x, ray_d.y, ray_d.z, t0]).to(torch.float32)
 
 
+class _Detached(torch.autograd.Function):
+    """A traversal kernel on the packed rays, cut out of autograd: its
+    outputs carry no gradient and its backward returns none, so no
+    gradient reaches the rays through a hit and the backward launches no
+    kernel.  Counterpart of the JAX package's zero-cotangent custom VJPs
+    (hits are fixed sample decisions); on the CPU it also keeps the plain
+    versions' in-place writes out of the graph."""
+
+    @staticmethod
+    def forward(ctx, kernel, bvh, rays):
+        out = kernel(bvh, rays)
+        ctx.mark_non_differentiable(*(out if isinstance(out, tuple)
+                                      else (out,)))
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, None
+
+
 def intersect(bvh: BVHArrays, ray_o, ray_d, t_max=BIG_T, active=None,
               precise: bool = False) -> Hit:
     """Closest-hit query; ray_o/ray_d are V3 of (R,).  Inactive rays report
-    a miss."""
+    a miss.  Detached: no gradient flows through it."""
     rays = pack_rays(ray_o, ray_d, t_max, active)
     kernel = cuda_trace.closest_hit_precise if precise \
         else cuda_trace.closest_hit
-    return Hit(*kernel(bvh, rays))
+    return Hit(*_Detached.apply(kernel, bvh, rays))
 
 
 def intersect_p(bvh: BVHArrays, ray_o, ray_d, t_max, active=None,
                 precise: bool = False):
-    """Occlusion (any hit in (1e-6, t_max)) query; returns (R,) bool."""
+    """Occlusion (any hit in (1e-6, t_max)) query; returns (R,) bool.
+    Detached, as ``intersect``."""
     rays = pack_rays(ray_o, ray_d, t_max, active)
     kernel = cuda_trace.any_hit_precise if precise else cuda_trace.any_hit
-    return kernel(bvh, rays)
+    return _Detached.apply(kernel, bvh, rays)
 
 
 def _inst_rays(group, o3: V3, d3: V3):

@@ -124,6 +124,18 @@ def _nm_from(nm_frame, v: V3) -> V3:
     return from_frame(nm_frame, v) if nm_frame is not None else v
 
 
+def _smooth_split(alpha):
+    """(smooth, the alpha of the microfacet branch): a lane below
+    SMOOTH_ALPHA takes the delta branch, and the microfacet branch it also
+    computes, then discards, runs at alpha 1 there.  Its value at the
+    lane's own alpha (infinite D at alpha 0, as on every lane of a kind
+    that has no roughness) is discarded all the same, but would pass a NaN
+    into the gradient (0 x inf in the backward of the discarding select).
+    No kept value changes."""
+    smooth = alpha < SMOOTH_ALPHA
+    return smooth, torch.where(smooth, 1.0, alpha)
+
+
 def _roughness(scene, it):
     m = scene.materials
     return _textured_float(scene, it, m.roughness, m.roughness_tex)
@@ -195,7 +207,7 @@ def _metal_sample(scene, it, wo_t, uv2, wl, nm_frame=None):
     eta, k = _metal_eta_k(scene, it, wl)
     rough = _roughness(scene, it)
     alpha = rough * rough
-    smooth = alpha < SMOOTH_ALPHA
+    smooth, alpha = _smooth_split(alpha)
     wo = _nm_to(nm_frame, wo_t)
 
     # specular branch: wi = mirror, f = F, pdf = 1
@@ -222,7 +234,7 @@ def _metal_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
     eta, k = _metal_eta_k(scene, it, wl)
     rough = _roughness(scene, it)
     alpha = rough * rough
-    smooth = alpha < SMOOTH_ALPHA
+    smooth, alpha = _smooth_split(alpha)
     wo = _nm_to(nm_frame, wo_t)
     wi = _nm_to(nm_frame, wi_t)
     wm = wo + wi
@@ -269,7 +281,7 @@ def _dielectric_sample(scene, it, wo_t, uc, uv2, wl, nm_frame,
     entering = dot3(it.geo_n, it.wo) > 0.0
     thin = scene.materials.thin[it.mat_id.long()] > 0
     alpha = _roughness(scene, it)          # raw roughness, not squared
-    smooth = alpha < SMOOTH_ALPHA
+    smooth, alpha = _smooth_split(alpha)
 
     wo = _nm_to(nm_frame, wo_t)
 
@@ -361,7 +373,7 @@ def _dielectric_eval(scene, it, wo_t, wi_t, wl, nm_frame, dispersive: bool,
     entering = dot3(it.geo_n, it.wo) > 0.0
     thin = scene.materials.thin[it.mat_id.long()] > 0
     alpha = _roughness(scene, it)
-    smooth = alpha < SMOOTH_ALPHA
+    smooth, alpha = _smooth_split(alpha)
 
     wo = _nm_to(nm_frame, wo_t)
     wi = _nm_to(nm_frame, wi_t)
@@ -430,7 +442,7 @@ def _schlick_fresnel(cos_theta, r0: S4, r90: S4, exponent, tint: S4) -> S4:
 
 def _schlick_r_sample(wo, uv2, alpha, r0, r90, tint, exponent=5.0):
     """Sample the R-only lobe (smooth -> delta); local frame."""
-    smooth = alpha < SMOOTH_ALPHA
+    smooth, alpha = _smooth_split(alpha)
     wi_s = _mirror(wo)
     f_s = _schlick_fresnel(torch.abs(wi_s.z), r0, r90, exponent, tint)
     wm = mf.sample_vndf(wo, uv2, alpha, alpha)
@@ -453,7 +465,7 @@ def _schlick_r_sample(wo, uv2, alpha, r0, r90, tint, exponent=5.0):
 
 
 def _schlick_r_eval(wo, wi, alpha, r0, r90, tint, exponent=5.0):
-    smooth = alpha < SMOOTH_ALPHA
+    smooth, alpha = _smooth_split(alpha)
     wm = wo + wi
     ok = (~smooth) & mf.same_hemisphere(wo, wi) & (dot3(wm, wm) > 0.0) & \
         (wo.z != 0.0) & (wi.z != 0.0)

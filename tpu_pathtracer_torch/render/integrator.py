@@ -72,6 +72,9 @@ class RenderConfig:
     eotf: str = "srgb"
     gamut: str = "srgb"
     tile_rays: int = 1 << 18       # lanes per wavefront tile
+    # trace_sample stops bouncing once every lane is dead, a host read per
+    # bounce; False runs all max_depth bounces (the differentiable pass).
+    # The wavefront ignores it
     early_exit: bool = True
     # watertight (Dekker-compensated shear) hit test for every traced ray;
     # None means False
@@ -92,8 +95,6 @@ def _check_config(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.sampler not in ("random", "sobol"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if not cfg.early_exit:
-        raise NotImplementedError("early_exit=False is not ported yet")
 
 
 def _out_gamut(cfg):
@@ -224,7 +225,8 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
     n_rays = torch.full((), r, dtype=torch.int64, device=dev)
 
     depth = 0
-    while depth < cfg.max_depth and bool(alive.any()):
+    while depth < cfg.max_depth and (not cfg.early_exit
+                                     or bool(alive.any())):
         base = 3 + DIMS_PER_BOUNCE * depth
         frame = make_frame(it.shading_n, it.tangent)
         wo_t = to_frame(frame, it.wo)

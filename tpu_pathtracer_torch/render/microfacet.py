@@ -14,6 +14,15 @@ import torch
 from ..utils.vec import S4, V2, V3, cross3, dot3, normalize3, sel
 
 
+def _sqrt0(x):
+    """sqrt of x >= 0 whose gradient is 0 at x = 0 (where sqrt's is
+    infinite): a lane at exactly 0 (a normal-incidence direction, the
+    critical angle) would turn the zero gradient of a discarded value into
+    0 x inf = NaN.  The same values as ``torch.sqrt``."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def _cos2_theta(w: V3):
     return w.z * w.z
 
@@ -25,7 +34,7 @@ def _tan2_theta(w: V3):
 
 
 def _cos_sin_phi(w: V3):
-    sin_t = torch.sqrt(torch.clamp(1.0 - _cos2_theta(w), min=0.0))
+    sin_t = _sqrt0(torch.clamp(1.0 - _cos2_theta(w), min=0.0))
     safe = sin_t > 0.0
     inv = 1.0 / torch.clamp(sin_t, min=1e-20)
     cp = torch.where(safe, torch.clamp(w.x * inv, -1, 1), 1.0)
@@ -119,7 +128,7 @@ def _fresnel_dielectric_lane(ci, eta):
     """(R,) dielectric Fresnel for one wavelength lane (1 on TIR)."""
     sin2_i = 1.0 - ci * ci
     sin2_t = sin2_i / (eta * eta)
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
+    cos_t = _sqrt0(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
     r_par = (eta * ci - cos_t) / (eta * ci + cos_t)
     r_per = (ci - eta * cos_t) / (ci + eta * cos_t)
     return 0.5 * (r_par * r_par + r_per * r_per)

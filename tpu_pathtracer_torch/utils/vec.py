@@ -22,21 +22,27 @@ __all__ = [
 ]
 
 
+def _parts(v):
+    """The component fields, as they are (``dataclasses.astuple`` would
+    deep-copy each tensor: a device copy per component, and an error on a
+    tensor that carries a gradient)."""
+    return tuple(getattr(v, f.name) for f in dataclasses.fields(v))
+
+
 def _binop(op):
     def f(self, other):
         cls = type(self)
         if isinstance(other, cls):
-            return cls(*(op(a, b) for a, b in
-                         zip(dataclasses.astuple(self),
-                             dataclasses.astuple(other))))
-        return cls(*(op(a, other) for a in dataclasses.astuple(self)))
+            return cls(*(op(a, b) for a, b in zip(_parts(self),
+                                                  _parts(other))))
+        return cls(*(op(a, other) for a in _parts(self)))
     return f
 
 
 def _rbinop(op):
     def f(self, other):
         cls = type(self)
-        return cls(*(op(other, a) for a in dataclasses.astuple(self)))
+        return cls(*(op(other, a) for a in _parts(self)))
     return f
 
 
@@ -54,7 +60,7 @@ class _Ops:
     __rtruediv__ = _rbinop(lambda b, a: b / a)
 
     def __neg__(self):
-        return type(self)(*(-a for a in dataclasses.astuple(self)))
+        return type(self)(*(-a for a in _parts(self)))
 
 
 @dataclasses.dataclass(frozen=True)
