@@ -106,6 +106,37 @@ line per phase; any failed check raises and the script exits non-zero.
            precise, ``loss_and_grads`` on the card against the CPU's plain
            versions: loss within 1e-3 relative, each gradient column
            within 1e-2 of its largest magnitude.
+  files    file-backed inputs, written to a temporary directory that
+           becomes the port's ``mesh.ASSET_DIR``: ``dragon.obj``, the
+           procedural dragon at 2304 x 192 (884,736 triangles, about the
+           scanned dragon's 871k; v/vt/vn/f lines, ``%.9g``), an LFS-stub
+           ``bunny.obj``, scene 19's sky as a FLOAT EXR, a ZIP/HALF EXR and
+           an 8-bit PNG texture.  Checks: each file read back by the port
+           equal to what was written (the OBJ's triangles and normals bit
+           for bit, the stub skipped for the procedural 9,216-triangle
+           bunny); times ``load_obj`` and the native SAH build of the
+           dragon, and the bunny under the numpy and the native builder in
+           turns (numpy, native, native, numpy); the native builder must
+           be available and no numpy build may run in the scene build.
+           Scene 17 through ``try_load_asset``: the kernels on the step-2
+           rays of its first tile (K1, K3) and their shadow rays (K2,
+           K2p), 262,144 lanes, exact against the plain versions (brute
+           force) on every 16th lane and against the kernels' walk in
+           PyTorch (``walk_wide_plain``) on every lane, timed and bounded
+           as in the kernels phase (the tables' bytes now dominate); then
+           the render gates of the main path at its size (1024x1024, MIS
+           + Z-Sobol, depth 16, table_res 64, 4 spp after a 1 spp warm-up),
+           fast and precise (launches = steps, finite, precise vs fast
+           display RMSE <= 0.01).  Scene 19 with its sky read from the EXR
+           at 512x512, 4 spp: the film equal bit for bit to the in-memory
+           sky's.  Neither PIL nor cv2 may have been imported.
+  fit      ``fit_table(srgb, 64)`` on the card, timed; on the 7^3 sweep of
+           tests/test_spectrum.py's production-res gate, the round trip's
+           p99 delta E < 1.0 and p99 delta E <= 0.1 between its spectra
+           and the committed ``srgb_64_v2.npz``'s.  Then the CLI with
+           ``--gamut rec2020 --table-res 24`` (sRGB at res 24 is not
+           committed; ``--gamut`` is the output gamut) as a subprocess,
+           which must fit the table, cache it and write its PNG.
 
 Before its last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  It exits non-zero, with
@@ -236,13 +267,14 @@ def device_ms(fn, reps: int) -> float:
         spin_cycles *= 2
 
 
-def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg) -> dict:
+def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg,
+                     max_steps=None) -> dict:
     """The launches the integrator makes of each kernel wrapper in every
     wavefront step of the first tile, its steps run as ``render_wavefront``
-    runs them (until the all-done flag, read every ``SYNC_EVERY`` steps):
-    {wrapper name: [(BVH, rays), ...]} in launch order; an instanced scene
-    launches each kernel on the main soup's BVH, then on each group's.
-    ``launches_on`` picks one BVH's."""
+    runs them (until the all-done flag, read every ``SYNC_EVERY`` steps, or
+    after ``max_steps`` steps): {wrapper name: [(BVH, rays), ...]} in
+    launch order; an instanced scene launches each kernel on the main
+    soup's BVH, then on each group's.  ``launches_on`` picks one BVH's."""
     from tpu_pathtracer_torch.render.sampler import make_sampler
 
     recorded = {k: [] for k in KERNELS}
@@ -266,10 +298,13 @@ def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg) -> dict:
         table = integ._spectral_table(scene)
         state = integ._wavefront_init(
             tile, 0, torch.zeros((tile, 3), device=dev))
-        while True:
-            for _ in range(integ.SYNC_EVERY):
+        steps = 0
+        while max_steps is None or steps < max_steps:
+            for _ in range(integ.SYNC_EVERY if max_steps is None
+                           else max_steps):
                 state = integ._wavefront_step(scene, meta, cam, cfg, sampler,
                                               px, cfg.spp, state, table)
+                steps += 1
             done = ~state["tracing"] & (state["sample"] + 1 >= cfg.spp)
             if bool(done.all()):
                 break
@@ -286,23 +321,45 @@ def launches_on(rec: dict, bvh) -> dict:
     return {k: [r for b, r in v if b is bvh] for k, v in rec.items()}
 
 
-def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
+def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set,
+                 plain_stride=1):
     """Hold one kernel against its plain version on each ray set, then time
     both and compute the bound on ``timed_set``; on each set read the
     counters and, for a kernel with a binary predecessor ``<name>_v1``
-    (K2p), time the two in turns.  Returns the kernel's row of the final "kernels" line (without
-    its launches)."""
+    (K2p), time the two in turns.  With ``plain_stride`` > 1 the plain
+    version (brute force: rays x triangles) runs on every
+    ``plain_stride``-th lane only, timed by that one call, and the
+    kernels' walk in PyTorch (``walk_wide_plain``) is held against the
+    kernel on every lane.  Returns the kernel's row of the final "kernels"
+    line (without its launches)."""
     tables, plain_table, closest, ops_per_test, ops_per_ray, _ = KERNELS[name]
     tris = getattr(bvh, plain_table)
     kern = getattr(cuda_trace, name)
     plain = getattr(cuda_trace, name + "_plain")
     prev = getattr(cuda_trace, name + "_v1", None)
+    lanes = slice(None, None, plain_stride)
     max_abs = 0.0
+    plain_call_ms = {}
     for set_name, rays in ray_sets.items():
         active = rays[6] > 0.0 if closest else rays[6] >= 0.0
-        got = kern(bvh, rays)
-        ref = plain(tris, rays)
+        got = got_all = kern(bvh, rays)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = plain(tris, rays[:, lanes].contiguous())
+        b.record()
         torch.cuda.synchronize()
+        plain_call_ms[set_name] = a.elapsed_time(b)
+        walk_differs = None
+        if plain_stride > 1:
+            walk = cuda_trace.walk_wide_plain(bvh, rays,
+                                              precise=name in PRECISE,
+                                              any_hit=not closest)
+            walk_differs = int(sum((x != y).sum() for x, y in zip(
+                walk if closest else (walk,),
+                got_all if closest else (got_all,))))
+            got = tuple(x[lanes] for x in got) if closest else got[lanes]
+            active = active[lanes]
         # a conservative cull gives the brute-force answers whatever the
         # visit order: every output equal on every ray, bit for bit
         if closest:
@@ -326,6 +383,10 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
                           only_kernel=int((got & ~ref).sum()),
                           only_plain=int((ref & ~got).sum()))
             ok = bool(same.all())
+        if walk_differs is not None:
+            detail.update(plain_lanes=len(range(rays.shape[1])[lanes]),
+                          walk_values_differ=walk_differs)
+            ok = ok and walk_differs == 0
         max_abs = max(max_abs, abs_err)
         counters = torch.zeros(4, dtype=torch.int64, device=rays.device)
         kern(bvh, rays, counters=counters)
@@ -343,7 +404,7 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
             continue
         # the binary walk it replaced, timed in turns with it
         c_prev = torch.zeros(4, dtype=torch.int64, device=rays.device)
-        if not torch.equal(prev(bvh, rays, counters=c_prev), got):
+        if not torch.equal(prev(bvh, rays, counters=c_prev), got_all):
             raise AssertionError(f"{name}_v1 differs from {name} on "
                                  f"{set_name}")
         times = {prev: [], kern: []}
@@ -362,7 +423,8 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
     live = int((rays[6] > 0.0 if closest else rays[6] >= 0.0).sum())
     ms = device_ms(lambda: kern(bvh, rays), 20)
     call_ms = cuda_ms(lambda: kern(bvh, rays), 10)
-    plain_ms = cuda_ms(lambda: plain(tris, rays), 3)
+    plain_ms = (cuda_ms(lambda: plain(tris, rays), 3) if plain_stride == 1
+                else plain_call_ms[timed_set])
     counters = torch.zeros(4, dtype=torch.int64, device=rays.device)
     kern(bvh, rays, counters=counters)
     torch.cuda.synchronize()
@@ -384,7 +446,7 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set):
                max_abs_err=max_abs)
     emit("kernels", kernel=name, timed_rays=timed_set, rays=n, live=live,
          node_visits=visits, tri_tests=tests, ops=ops, bytes=nbytes, **row,
-         call_ms=call_ms, library_ms=None,
+         call_ms=call_ms, plain_lanes=len(range(n)[lanes]), library_ms=None,
          **cuda_trace.launch_info(name, n))
     return row
 
@@ -660,6 +722,315 @@ def check_train(integ, cuda_trace, scene_at, dev):
     return grad_launches
 
 
+# ---------------------------------------------------------------------------
+# file-backed scenes: OBJ, EXR and PNG inputs, the native SAH builder
+# ---------------------------------------------------------------------------
+
+SCAN_N_U, SCAN_N_V = 2304, 192     # 884,736 triangles, ~ the scanned dragon
+SCAN_PLAIN_STRIDE = 16             # brute force on every 16th lane
+SKY_SIZE = 512
+
+
+def write_obj(path, m) -> None:
+    """A Mesh as v/vt/vn/f lines (``%.9g``: float32 values round-trip)."""
+    import numpy as np
+    with open(path, "w") as f:
+        np.savetxt(f, m.positions, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, m.uvs, fmt="vt %.9g %.9g")
+        np.savetxt(f, m.normals, fmt="vn %.9g %.9g %.9g")
+        np.savetxt(f, np.repeat(m.indices + 1, 3, axis=1),
+                   fmt="f %d/%d/%d %d/%d/%d %d/%d/%d")
+
+
+def write_zip_half_exr(path, img) -> None:
+    """(H, W, 3) float16 -> a ZIP-compressed (16 scanlines a block) HALF
+    EXR, laid out as OpenEXR writes one."""
+    import struct
+    import zlib
+    from tpu_pathtracer_torch.utils.exr import _interleave_predict
+    h, w, _ = img.shape
+
+    def attr(name, typ, data):
+        return (name.encode() + b"\0" + typ.encode() + b"\0"
+                + struct.pack("<I", len(data)) + data)
+    names = ("B", "G", "R")                  # the file's (alphabetical) order
+    chlist = b"".join(n.encode() + b"\0" + struct.pack(
+        "<iBBBBii", 1, 0, 0, 0, 0, 1, 1) for n in names) + b"\0"
+    box = struct.pack("<4i", 0, 0, w - 1, h - 1)
+    header = (struct.pack("<ii", 20000630, 2)
+              + attr("channels", "chlist", chlist)
+              + attr("compression", "compression", bytes([3]))
+              + attr("dataWindow", "box2i", box)
+              + attr("displayWindow", "box2i", box)
+              + attr("lineOrder", "lineOrder", b"\0")
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\0")
+    chunks = []
+    for y0 in range(0, h, 16):
+        raw = b"".join(img[y, :, "RGB".index(n)].tobytes()
+                       for y in range(y0, min(y0 + 16, h)) for n in names)
+        comp = zlib.compress(_interleave_predict(raw))
+        chunks.append(struct.pack("<iI", y0, len(comp)) + comp)
+    offsets, pos = [], len(header) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    with open(path, "wb") as f:
+        f.write(header + struct.pack(f"<{len(chunks)}q", *offsets)
+                + b"".join(chunks))
+
+
+def check_files(integ, cuda_trace, tm_mod, eotf_mod, scene_at, cfg):
+    """The files phase: inputs written to a temporary ASSET_DIR, read back
+    by the port; scene 17 with the scan-sized OBJ dragon (the native SAH
+    build, its kernel set, the fast and precise renders); scene 19 with its
+    sky from an EXR.  Returns the dense scene's kernel rows."""
+    import numpy as np
+    from tpu_pathtracer_torch import native, scenes
+    from tpu_pathtracer_torch.cli import write_png
+    from tpu_pathtracer_torch.scene import builder, bvh, image_io, mesh
+    from tpu_pathtracer_torch.utils import exr
+
+    t_phase = time.perf_counter()
+    numpy_builds = []
+    real_numpy_build = builder.build_bvh
+
+    def counted(lo, hi):
+        numpy_builds.append(len(lo))
+        return real_numpy_build(lo, hi)
+    builder.build_bvh = counted
+    asset_dir = mesh.ASSET_DIR
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        # ---- inputs ---------------------------------------------------------
+        dense = mesh.dragon(n_u=SCAN_N_U, n_v=SCAN_N_V)      # procedural
+        t0 = time.perf_counter()
+        write_obj(os.path.join(d, "dragon.obj"), dense)
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(d, "bunny.obj"), "w") as f:
+            f.write("version https://git-lfs.github.com/spec/v1\n"
+                    "oid sha256:0\nsize 0\n")
+        sky = scenes._procedural_sky()
+        exr.write_exr(os.path.join(d, "sky.exr"), sky)
+        rng = np.random.default_rng(8)
+        half = (rng.random((37, 53, 3)) * 8.0).astype(np.float16)
+        write_zip_half_exr(os.path.join(d, "half.exr"), half)
+        px = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+        write_png(os.path.join(d, "albedo.png"), px)
+        mesh.ASSET_DIR = d
+
+        # ---- readers --------------------------------------------------------
+        got_half = exr.read_exr(os.path.join(d, "half.exr"))
+        got_sky = image_io.load_env(os.path.join(d, "sky.exr"))
+        tex = image_io.texture_from_file(os.path.join(d, "albedo.png"),
+                                         kind="rgb", linearize=False)
+        readers = dict(
+            zip_half_exr=bool(np.array_equal(got_half,
+                                             half.astype(np.float32))),
+            float_exr_sky=bool(np.array_equal(got_sky, sky)),
+            png_texture=bool(np.array_equal(tex.data,
+                                            px.astype(np.float32) / 255.0)))
+        t0 = time.perf_counter()
+        m = mesh.load_obj(os.path.join(d, "dragon.obj"))
+        load_s = time.perf_counter() - t0
+        tris = m.positions[m.indices]
+        readers["obj"] = bool(
+            len(m.indices) == 2 * SCAN_N_U * SCAN_N_V
+            and np.array_equal(tris, dense.positions[dense.indices])
+            and np.array_equal(m.normals[m.indices],
+                               dense.normals[dense.indices]))
+        bunny = mesh.bunny()            # the LFS stub: the procedural bunny
+        readers["lfs_stub_skipped"] = len(bunny.indices) == 9216
+        if not native.available():
+            raise AssertionError("files: the native SAH builder is not "
+                                 "available")
+        t0 = time.perf_counter()
+        fb = native.build_bvh_native(tris.min(1), tris.max(1))
+        native_s = time.perf_counter() - t0
+        # the bunny's soup under both builders, in turns
+        bt = bunny.positions[bunny.indices]
+        times = {"numpy": [], "native": []}
+        trees = {}
+        for which in ("numpy", "native", "native", "numpy"):
+            t0 = time.perf_counter()
+            trees[which] = (bvh.build_bvh if which == "numpy"
+                            else native.build_bvh_native)(bt.min(1),
+                                                          bt.max(1))
+            times[which].append(time.perf_counter() - t0)
+        same = all(np.array_equal(getattr(trees["numpy"], f),
+                                  getattr(trees["native"], f))
+                   for f in ("bounds_min", "bounds_max", "left", "right",
+                             "count", "order"))
+        emit("files", sub="inputs", write_obj_s=write_s,
+             obj_bytes=os.path.getsize(os.path.join(d, "dragon.obj")),
+             load_obj_s=load_s, triangles=len(m.indices),
+             native_sah_s=native_s, native_nodes=fb.n_nodes,
+             native_depth=fb.depth, bunny_triangles=len(bunny.indices),
+             bunny_numpy_s=times["numpy"], bunny_native_s=times["native"],
+             bunny_trees_equal=same, readers=readers)
+        if not all(readers.values()):
+            raise AssertionError(f"files: a reader failed: {readers}")
+        del m, tris, dense, fb
+
+        # ---- scene 17 with the OBJ dragon -----------------------------------
+        t0 = time.perf_counter()
+        s_d, m_d, c_d = scenes.load_scene(17, cfg.width, cfg.height,
+                                          table_res=64)
+        build_s = time.perf_counter() - t0
+        emit("files", sub="scene17_obj_build", seconds=build_s,
+             n_tris=m_d.n_tris, numpy_builds=numpy_builds,
+             wide_rows=s_d.bvh.nodes_w.shape[0], wide_depth=s_d.bvh.wide_depth,
+             stack_depth=s_d.bvh.stack_depth)
+        if m_d.n_tris != 2 * SCAN_N_U * SCAN_N_V + 12 or numpy_builds:
+            raise AssertionError("files: scene 17 was not built from the OBJ "
+                                 "by the native builder")
+        rows = {}
+        for names, c in ((FAST, cfg),
+                         (PRECISE, dataclasses.replace(cfg, precise=True))):
+            rec = launches_on(record_tile_rays(cuda_trace, integ, s_d, m_d,
+                                               c_d, c, max_steps=2), s_d.bvh)
+            for name in names:
+                label = "scan_step2" if name in ("closest_hit",
+                                                 "closest_hit_precise") \
+                    else "scan_shadow_step2"
+                rows[name] = check_kernel(cuda_trace, s_d.bvh, name,
+                                          {label: rec[name][1]}, label,
+                                          plain_stride=SCAN_PLAIN_STRIDE)
+            del rec
+        helpers = (integ, cuda_trace, tm_mod, eotf_mod)
+        img_f, _ = timed_render(*helpers, "files_render_scan", s_d, m_d, c_d,
+                                cfg, expect=FAST, forbid=PRECISE)
+        img_p, _ = timed_render(*helpers, "files_render_scan_precise", s_d,
+                                m_d, c_d, dataclasses.replace(cfg,
+                                                              precise=True),
+                                expect=PRECISE, forbid=FAST)
+        rmse = display_rmse(img_p, img_f)
+        emit("files_render_scan_precise", rmse_vs_fast=rmse)
+        if not rmse <= GATE_RMSE:
+            raise AssertionError(f"files: scan-sized dragon precise vs fast "
+                                 f"display RMSE {rmse} > {GATE_RMSE}")
+        del img_f, img_p, s_d
+
+        # ---- scene 19 with its sky from the EXR ----------------------------
+        real_sky = scenes._procedural_sky
+        scenes._procedural_sky = lambda: image_io.load_env(
+            os.path.join(d, "sky.exr"))
+        try:
+            s_e, m_e, c_e = scenes.load_scene(19, SKY_SIZE, SKY_SIZE,
+                                              table_res=64)
+        finally:
+            scenes._procedural_sky = real_sky
+        s_m, m_m, c_m = scene_at(19, SKY_SIZE, SKY_SIZE)
+        scfg = integ.RenderConfig(width=SKY_SIZE, height=SKY_SIZE, spp=4,
+                                  max_depth=16)
+        t0 = time.perf_counter()
+        film_e = integ.render_accum(s_e, m_e, c_e, scfg)
+        film_m = integ.render_accum(s_m, m_m, c_m, scfg)
+        equal = bool(torch.equal(film_e, film_m))
+        emit("files", sub="scene19_sky_from_exr", width=SKY_SIZE,
+             height=SKY_SIZE, spp=4, film_equal=equal,
+             finite=bool(torch.isfinite(film_e).all()),
+             seconds=time.perf_counter() - t0)
+        if not equal:
+            raise AssertionError("files: scene 19 from the EXR sky differs "
+                                 "from the in-memory sky")
+    finally:
+        builder.build_bvh = real_numpy_build
+        mesh.ASSET_DIR = asset_dir
+        tmp.cleanup()
+    loaded = [k for k in ("PIL", "cv2") if k in sys.modules]
+    emit("files", sub="done", image_libraries_loaded=loaded,
+         seconds=time.perf_counter() - t_phase)
+    if loaded:
+        raise AssertionError(f"files: {loaded} imported")
+    return rows
+
+
+def delta_e_sweep(gamut, tables, n, dev):
+    """tests/test_spectrum.py's round trip: the n^3 rgb sweep through each
+    table's albedo spectra, to CIELAB under D65 -> (delta E of each table
+    against the targets, delta E between the first two tables' spectra)."""
+    import numpy as np
+    from tpu_pathtracer_torch.spectrum import cie, grid, rgb2spec
+
+    def lab(x):
+        r = x / (gamut.rgb_to_xyz @ np.ones(3))
+        f = np.where(r > (6 / 29) ** 3, np.cbrt(np.maximum(r, 1e-12)),
+                     r * (29 / 6) ** 2 / 3 + 4 / 29)
+        return np.stack([116 * f[:, 1] - 16, 500 * (f[:, 0] - f[:, 1]),
+                         200 * (f[:, 1] - f[:, 2])], -1)
+    r = np.linspace(0.02, 0.98, n)
+    rgb = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(
+        -1, 3).astype(np.float32)
+    a = np.stack([cie.cie_x(), cie.cie_y(), cie.cie_z()], -1) \
+        * cie.illum_d6500()[:, None]
+    lam = torch.tensor(grid.DENSE_LAMBDA, dtype=torch.float32,
+                       device=dev).expand(len(rgb), -1)
+    labs = [lab(rgb2spec.albedo_eval(torch.from_numpy(rgb).to(dev), lam, zn,
+                                     co).double().cpu().numpy() @ a)
+            for zn, co in tables]
+    target = lab(rgb @ gamut.rgb_to_xyz.T)
+    return ([np.linalg.norm(x - target, axis=-1) for x in labs],
+            np.linalg.norm(labs[0] - labs[1], axis=-1))
+
+
+# the CLI's table: its scenes' working gamut is sRGB whatever ``--gamut``
+# (the output gamut) says, and sRGB is committed at res 16, 32 and 64
+CLI_TABLE_RES = 24
+
+
+def check_fit(dev):
+    """The fit phase: ``fit_table(srgb, 64)`` on the card against the
+    committed table; the CLI with ``--gamut rec2020`` and a table that is
+    not committed (sRGB at res 24), fitted and cached."""
+    import numpy as np
+    from tpu_pathtracer_torch.color.gamut import by_name
+    from tpu_pathtracer_torch.spectrum import rgb2spec
+
+    srgb = by_name("srgb")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zn, co = rgb2spec.fit_table(srgb, 64, device=dev)
+    fit_s = time.perf_counter() - t0
+    with np.load(os.path.join(rgb2spec.TABLE_DIR, "srgb_64_v2.npz")) as ref:
+        committed = ref["z_nodes"], ref["coeffs"]
+    (rt_fit, rt_committed), between = delta_e_sweep(
+        srgb, [(zn, co), committed], 7, dev)
+    p99 = dict(round_trip=float(np.percentile(rt_fit, 99)),
+               committed_round_trip=float(np.percentile(rt_committed, 99)),
+               vs_committed=float(np.percentile(between, 99)))
+    emit("fit", sub="srgb_64", seconds=fit_s, p99_delta_e=p99,
+         max_delta_e_vs_committed=float(between.max()),
+         max_abs_coeff_diff=float(np.abs(co - committed[1]).max()),
+         z_nodes_equal=bool(np.array_equal(zn, committed[0])))
+    if not (p99["round_trip"] < 1.0 and p99["vs_committed"] <= 0.1):
+        raise AssertionError(f"fit: srgb at res 64 misses its gates: {p99}")
+
+    cached = os.path.join(rgb2spec.CACHE_DIR,
+                          rgb2spec.table_file("srgb", CLI_TABLE_RES))
+    if os.path.exists(cached):
+        os.remove(cached)          # so that the CLI fits it
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "rec2020.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_pathtracer_torch.cli", "--scene",
+             "17", "--gamut", "rec2020", "--table-res", str(CLI_TABLE_RES),
+             "--width", "128", "--height", "96", "--spp", "4", "-o", png],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        size = os.path.getsize(png) if os.path.exists(png) else 0
+    emit("fit", sub="cli", gamut="rec2020", table_res=CLI_TABLE_RES,
+         rc=proc.returncode, png_bytes=size,
+         table_cached=os.path.exists(cached),
+         stdout=proc.stdout.strip().splitlines(),
+         seconds=time.perf_counter() - t0)
+    if proc.returncode != 0 or size == 0 or not os.path.exists(cached):
+        raise AssertionError(f"fit: the CLI failed: {proc.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -881,6 +1252,12 @@ def main() -> int:
 
     # ---- train: the differentiable pass ---------------------------------------
     check_train(integ, cuda_trace, scene_at, dev)
+
+    # ---- files: OBJ, EXR and PNG inputs; the scan-sized dragon --------------
+    check_files(integ, cuda_trace, tm_mod, eotf_mod, scene_at, cfg)
+
+    # ---- fit: the rgb2spec fitter on the card ----------------------------------
+    check_fit(dev)
 
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [

@@ -7,9 +7,9 @@ contract against the flattened build; render against flattened; the
 scene-7 smoke test; emissive instances refused), and the port against the
 JAX package on seeded inputs:
 
-  * scene 7's group tables and ``world_radius``, bit for bit against the
-    JAX package's numpy SAH build, and the same rows in another leaf order
-    against its native build;
+  * scene 7's group tables and ``world_radius``: the port's default build
+    bit for bit against the JAX package's default (native) build, and
+    under TPT_NO_NATIVE against its numpy SAH build;
   * ``intersect_scene`` / ``intersect_p_scene`` over the bridged scene on
     4,096 rays: precise against the JAX BVH walk (equal hit, id and
     occlusion; t within 1e-6 relative of the jitted walk, and t, b1, b2
@@ -43,32 +43,16 @@ from tpu_pathtracer_torch.ops import trace as ttrace
 from tpu_pathtracer_torch.render import surface as tsurf
 from tpu_pathtracer_torch.render.camera import default_camera
 from tpu_pathtracer_torch.render.integrator import RenderConfig, render
-from tpu_pathtracer_torch.scene import builder as tbuilder
 from tpu_pathtracer_torch.scene import mesh as tmesh
 from tpu_pathtracer_torch.scene.builder import Emissive, Metal, SceneBuilder
 from tpu_pathtracer_torch.utils.vec import V3
 
+from test_torch_native import jax_native_ready
 from test_torch_slice_scene0 import two_torch_threads  # noqa: F401
 
 TABLE_RES = 16
 W, H = 48, 36
 N_RAYS = 4096
-
-
-@pytest.fixture(scope="module", autouse=True)
-def port_bvh_once_per_geometry():
-    """The port's SAH build of the bunny, computed once for the module's
-    four builds of it (the build is a pure function of the boxes)."""
-    with pytest.MonkeyPatch.context() as mp:
-        cache = {}
-
-        def build(lo, hi, _real=tbuilder.build_bvh):
-            key = (lo.tobytes(), hi.tobytes())
-            if key not in cache:
-                cache[key] = _real(lo, hi)
-            return cache[key]
-        mp.setattr(tbuilder, "build_bvh", build)
-        yield
 
 
 # ---------------------------------------------------------------------------
@@ -205,16 +189,20 @@ def test_emissive_instances_rejected():
 @pytest.fixture(scope="module")
 def scene7():
     """JAX scene 7 built with the JAX package's numpy SAH builder, its
-    bridge into the port, the port's own build of scene 7, and the JAX
-    package's group built by its default (native) builder."""
+    bridge into the port, the port's own builds of scene 7 (the default,
+    native, and the numpy one under TPT_NO_NATIVE), and the JAX package's
+    group built by its default (native) builder."""
+    jax_native_ready()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         js, jm, jc = jload(7, 32, 24, table_res=TABLE_RES)
+        own_numpy = tscenes.load_scene(7, 32, 24, table_res=TABLE_RES,
+                                       device="cpu")
     bridged = scene_from_numpy(as_numpy_tree(js), jm._asdict(),
                                dataclasses.asdict(jc), device="cpu")
     own = tscenes.load_scene(7, 32, 24, table_res=TABLE_RES, device="cpu")
     native = jload(7, 32, 24, table_res=TABLE_RES)[0].instanced[0]
-    return (js, jm, jc), bridged, own, native
+    return (js, jm, jc), bridged, (own, own_numpy), native
 
 
 def _eq(t, j, name):
@@ -223,13 +211,7 @@ def _eq(t, j, name):
     assert np.array_equal(t, j), name
 
 
-def test_group_tables_match_jax(scene7):
-    """Bit for bit against the JAX package's numpy build; against its
-    native build the same rows in another leaf order (the two JAX builders
-    round the SAH costs of this mesh differently)."""
-    (js, _, _), _, (ts, _, _), native = scene7
-    assert len(ts.instanced) == len(js.instanced) == 1
-    tg, jg = ts.instanced[0], js.instanced[0]
+def _group_eq(tg, jg):
     for f in ("tri_attr", "fwd", "inv", "mat_id", "aabb_min", "aabb_max"):
         _eq(getattr(tg, f).numpy(), getattr(jg, f), f)
     for f in ("nodes_f", "nodes_i", "tri9"):
@@ -237,16 +219,21 @@ def test_group_tables_match_jax(scene7):
     n = jg.bvh.tri9.shape[0]
     _eq(tg.bvh.tri_m12.numpy(), np.asarray(jg.bvh.tri_m12)[:n], "tri_m12")
     assert tg.bvh.stack_depth == jg.bvh.stack_hint.shape[0]
-    _eq(ts.world_radius.numpy(), js.world_radius, "world_radius")
-    for f in ("fwd", "inv", "mat_id", "aabb_min", "aabb_max"):
-        _eq(getattr(tg, f).numpy(), getattr(native, f), f)
 
-    def by_vertices(tri9, attr):
-        k = np.lexsort(np.asarray(tri9).T[::-1])
-        return np.asarray(tri9)[k], np.asarray(attr)[k]
-    for a, b in zip(by_vertices(tg.bvh.tri9.numpy(), tg.tri_attr.numpy()),
-                    by_vertices(native.bvh.tri9, native.tri_attr)):
-        assert np.array_equal(a, b)
+
+def test_group_tables_match_jax(scene7):
+    """The port's default build bit for bit against the JAX package's
+    default (native) build, and under TPT_NO_NATIVE against its numpy
+    build (the two builders order this mesh's soup differently: they
+    round the SAH costs of its float64 boxes differently)."""
+    (js, _, _), _, (own, own_numpy), native = scene7
+    ts, tn = own[0], own_numpy[0]
+    assert len(ts.instanced) == len(tn.instanced) == len(js.instanced) == 1
+    _group_eq(ts.instanced[0], native)
+    _group_eq(tn.instanced[0], js.instanced[0])
+    for t in (ts, tn):
+        _eq(t.world_radius.numpy(), js.world_radius, "world_radius")
+    assert not np.array_equal(native.bvh.tri9, js.instanced[0].bvh.tri9)
 
 
 def _rays(n, seed, cam_pos):

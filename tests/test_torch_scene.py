@@ -2,8 +2,8 @@
 rule, the NotImplementedError fences around what is not ported, and
 ``early_exit=False``.
 
-Both packages build every scene with the pure-numpy SAH builder (the JAX
-one with TPT_NO_NATIVE=1), so every table must come out the same,
+Both packages build every scene with the pure-numpy SAH builder (both
+with TPT_NO_NATIVE=1), so every table must come out the same,
 the instanced groups' included: integer and BVH tables exactly, float
 tables (textures and the environment's CDFs included) within 1e-6
 relative (the rgb2spec coefficient lookup runs in float32 on both sides).
@@ -57,7 +57,7 @@ def scenes():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         j = jload(17, 32, 24, table_res=16)
-    t = tload(17, 32, 24, table_res=16, device="cpu")
+        t = tload(17, 32, 24, table_res=16, device="cpu")
     return j, t
 
 
@@ -86,7 +86,8 @@ def test_scene_tables_match_jax(n):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         j = jload(n, 32, 24, table_res=16)
-    _tables_match(j, tload(n, 32, 24, table_res=16, device="cpu"))
+        t = tload(n, 32, 24, table_res=16, device="cpu")
+    _tables_match(j, t)
 
 
 def _bvh_match(tb, jb, name):
@@ -232,8 +233,9 @@ def test_bridge_round_trip_textures_and_env(n):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         j = jload(n, 32, 24, table_res=16)
+        t = tload(n, 32, 24, table_res=16, device="cpu")
     js, jm, jc = j
     bridged = scene_from_numpy(as_numpy_tree(js), jm._asdict(),
                                dataclasses.asdict(jc), device="cpu")
     _tables_match(j, bridged)
-    _tables_match(j, tload(n, 32, 24, table_res=16, device="cpu"))
+    _tables_match(j, t)

@@ -70,8 +70,11 @@ def test_lookup_coeffs_matches(res):
 
 
 def test_missing_table_raises():
-    with pytest.raises(FileNotFoundError):
-        tr2s.get_table("srgb", 7)
+    """A table that is not committed is fitted (tests/
+    test_torch_spectrum_api.py); one of a gamut that does not exist has
+    nothing to be fitted to, and raises."""
+    with pytest.raises(KeyError):
+        tr2s.get_table("no_such_gamut", 7)
 
 
 def test_sigmoid_unbounded_illuminant_s4_match():

@@ -248,7 +248,7 @@ def test_bridge_builds_the_same_wide_rows():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPT_NO_NATIVE", "1")
         js, jm, jc = jload(0, 32, 24, table_res=16)
-    ts, _, _ = tload(0, 32, 24, table_res=16, device="cpu")
+        ts, _, _ = tload(0, 32, 24, table_res=16, device="cpu")
     bs, _, _ = scene_from_numpy(as_numpy_tree(js), jm._asdict(),
                                 dataclasses.asdict(jc), device="cpu")
     assert torch.equal(bs.bvh.nodes_w.view(torch.int32),

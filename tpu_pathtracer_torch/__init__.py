@@ -28,4 +28,8 @@ the plain PyTorch versions of the kernels on the CPU.
 """
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "N_SPECTRUM_SAMPLES", "LAMBDA_MIN", "LAMBDA_MAX"]
+
+N_SPECTRUM_SAMPLES = 4  # hero wavelengths per path
+LAMBDA_MIN = 360.0      # nm
+LAMBDA_MAX = 830.0

@@ -7,7 +7,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["encode", "decode"]
+__all__ = ["encode", "decode", "EOTF_NAMES"]
+
+EOTF_NAMES = (
+    "linear", "gamma2_2", "gamma2_4", "gamma2_6", "srgb", "adobe_rgb", "rec709",
+)
 
 
 def _safe_pow(x, p):

@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["apply", "invert"]
+__all__ = ["apply", "invert", "TONE_MAP_NAMES"]
+
+TONE_MAP_NAMES = ("none", "reinhard")
 
 
 def apply(rgb, tone_map: str):

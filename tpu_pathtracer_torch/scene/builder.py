@@ -9,8 +9,10 @@ affine instances).
 
 ``build(camera_position)`` bakes all meshes into one triangle soup in
 render space (world minus camera position), reorders it by one SAH BVH
-(the pure-numpy builder), builds each instanced mesh's object-space soup
-and BVH once, and packs the material, light and spectra tables.
+(the native builder, ``native.py``; the numpy one of ``scene/bvh.py``
+without a C++ compiler or with ``TPT_NO_NATIVE`` set, as in the JAX
+package), builds each instanced mesh's object-space soup and BVH once,
+and packs the material, light and spectra tables.
 Spectra-bank row 0 is always the normalized D65.  The tables are numpy
 computed as the JAX package computes them, so that both packages build the
 same scene.
@@ -18,11 +20,14 @@ same scene.
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import native
 from ..spectrum import cie, rgb2spec
 from ..spectrum.grid import DENSE_LAMBDA, N_DENSE
 from .bvh import build_bvh
@@ -33,6 +38,24 @@ from .types import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_ENV, LIGHT_POINT,
                     MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_PLASTIC, EnvMap,
                     InstancedGroup, LightTable, MaterialTable, SceneData,
                     SceneMeta)
+
+
+def sah_bvh(tri_min: np.ndarray, tri_max: np.ndarray):
+    """The SAH BVH over (T, 3) triangle boxes, as the JAX package's scene
+    compiler builds it: the native builder, or the numpy one (with a
+    warning) when ``TPT_NO_NATIVE`` is set or no C++ compiler is found.
+    The native builder takes the boxes as float32, the numpy one as
+    given."""
+    if os.environ.get("TPT_NO_NATIVE"):
+        why = "TPT_NO_NATIVE is set"
+    else:
+        fb = native.build_bvh_native(tri_min, tri_max)
+        if fb is not None:
+            return fb
+        why = "no C++ compiler was found"
+    warnings.warn(f"{why}: building the BVH with the numpy SAH builder",
+                  stacklevel=2)
+    return build_bvh(tri_min, tri_max)
 
 
 @dataclasses.dataclass
@@ -410,7 +433,7 @@ class SceneBuilder:
         # render space: subtract the camera position
         P = (P - cam_pos).astype(np.float32)
 
-        fb = build_bvh(P.min(1), P.max(1))
+        fb = sah_bvh(P.min(1), P.max(1))
         o = fb.order
         P, N, UV, TAN, MATID, PRIM = P[o], N[o], UV[o], TAN[o], MATID[o], PRIM[o]
         bvh = pack_bvh(fb, P)
@@ -595,7 +618,7 @@ class SceneBuilder:
         N = mesh.normals[idx].astype(np.float32)
         UV = mesh.uvs[idx].astype(np.float32)
         TAN = mesh.tangents.astype(np.float32)
-        fb = build_bvh(P.min(1), P.max(1))
+        fb = sah_bvh(P.min(1), P.max(1))
         o = fb.order
         P, N, UV, TAN = P[o], N[o], UV[o], TAN[o]
         gbvh = pack_bvh(fb, P.astype(np.float32))

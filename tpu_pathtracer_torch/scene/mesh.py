@@ -1,17 +1,57 @@
-"""Triangle meshes for the ported scenes (host-side numpy).
+"""Triangle meshes (host-side numpy): OBJ loading, procedural meshes,
+tangent generation.
 
-Counterpart of the parts of ``tpu_pathtracer/scene/mesh.py`` that the
-ported scenes need: ``Mesh``, ``quad``, ``uv_sphere``, the procedural
-``bunny`` and ``dragon``, and the tangent generation.  The JAX package also loads scanned OBJ assets when they are
-present on disk; the port builds the procedural stand-ins only.
+Counterpart of ``tpu_pathtracer/scene/mesh.py``.  ``bunny()`` and
+``dragon()`` load the scanned assets ``ASSET_DIR/bunny.obj`` and
+``ASSET_DIR/dragon.min.obj`` (or ``dragon.obj``) when they are real OBJ
+files, not Git LFS pointer stubs, and otherwise build procedural stand-ins
+(a perturbed sphere, a swept torus knot).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
-__all__ = ["Mesh", "quad", "uv_sphere", "bunny", "dragon"]
+__all__ = ["Mesh", "load_obj", "quad", "box_interior", "uv_sphere", "bunny",
+           "dragon", "try_load_asset"]
+
+# Real scanned assets are loaded from here when present (and not LFS
+# pointer stubs): TPT_ASSET_DIR, as for the JAX package, else the
+# checkout's assets/ directory (gitignored)
+ASSET_DIR = os.environ.get("TPT_ASSET_DIR", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "assets"))
+
+
+def _is_lfs_stub(path: str) -> bool:
+    try:
+        with open(path, "rb") as f:
+            return f.read(32).startswith(b"version https://git-lfs")
+    except OSError:
+        return True
+
+
+def try_load_asset(name: str, fit_height: float | None = None):
+    """Load ``ASSET_DIR/name`` if it is a real OBJ (not an LFS stub).
+
+    Returns the Mesh or None.  When ``fit_height`` is given the mesh is
+    uniformly rescaled so its Y extent equals it, recentred in XZ with its
+    base at y=0, the convention of the procedural stand-ins, so that a real
+    scan drops into the same scene transforms."""
+    path = os.path.join(ASSET_DIR, name)
+    if not os.path.isfile(path) or _is_lfs_stub(path):
+        return None
+    m = load_obj(path)
+    if fit_height is not None and len(m.positions):
+        p = m.positions
+        lo, hi = p.min(0), p.max(0)
+        s = fit_height / max(hi[1] - lo[1], 1e-9)
+        center = (lo + hi) * 0.5
+        p = (p - [center[0], lo[1], center[2]]) * s
+        m = dataclasses.replace(m, positions=p.astype(np.float32))
+    return m
 
 
 @dataclasses.dataclass
@@ -23,6 +63,10 @@ class Mesh:
     uvs: np.ndarray
     indices: np.ndarray
     tangents: np.ndarray
+
+    @property
+    def n_triangles(self) -> int:
+        return len(self.indices)
 
     def transformed(self, matrix: np.ndarray) -> "Mesh":
         """Apply a 4x4 transform (normals via inverse transpose)."""
@@ -84,6 +128,58 @@ def _finalize(positions, normals, uvs, indices) -> Mesh:
     return Mesh(positions, normals, uvs, indices, tangents)
 
 
+def load_obj(path: str) -> Mesh:
+    """Minimal OBJ parser: v/vt/vn and polygonal f, fan-triangulated;
+    every distinct vertex token (``v``, ``v/vt``, ``v//vn``, ``v/vt/vn``,
+    negative indices relative) becomes one vertex.  Without normals in the
+    file the vertex normals are area-weighted."""
+    vs, vts, vns = [], [], []
+    out_pos, out_uv, out_nrm, out_idx = [], [], [], []
+    cache: dict = {}
+
+    def vertex(token: str) -> int:
+        if token in cache:
+            return cache[token]
+        parts = token.split("/")
+        vi = int(parts[0])
+        vi = vi - 1 if vi > 0 else len(vs) + vi
+        out_pos.append(vs[vi])
+        if len(parts) > 1 and parts[1]:
+            ti = int(parts[1])
+            out_uv.append(vts[ti - 1 if ti > 0 else len(vts) + ti])
+        else:
+            out_uv.append((0.0, 0.0))
+        if len(parts) > 2 and parts[2]:
+            ni = int(parts[2])
+            out_nrm.append(vns[ni - 1 if ni > 0 else len(vns) + ni])
+        else:
+            out_nrm.append((0.0, 0.0, 0.0))
+        idx = len(out_pos) - 1
+        cache[token] = idx
+        return idx
+
+    with open(path) as f:
+        for line in f:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "v":
+                vs.append(tuple(map(float, t[1:4])))
+            elif t[0] == "vt":
+                vts.append(tuple(map(float, t[1:3])))
+            elif t[0] == "vn":
+                vns.append(tuple(map(float, t[1:4])))
+            elif t[0] == "f":
+                ids = [vertex(tok) for tok in t[1:]]
+                for k in range(1, len(ids) - 1):     # fan triangulation
+                    out_idx.append((ids[0], ids[k], ids[k + 1]))
+
+    normals = np.asarray(out_nrm, np.float32)
+    if not len(normals) or float(np.abs(normals).sum()) == 0.0:
+        normals = None
+    return _finalize(out_pos, normals, out_uv, out_idx)
+
+
 def quad(p00, p10, p11, p01, uv_scale: float = 1.0) -> Mesh:
     """Two-triangle quad with planar UVs; vertices counter-clockwise."""
     p = np.asarray([p00, p10, p11, p01], np.float32)
@@ -93,6 +189,26 @@ def quad(p00, p10, p11, p01, uv_scale: float = 1.0) -> Mesh:
     uvs = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32) * uv_scale
     indices = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
     return _finalize(p, normals, uvs, indices)
+
+
+def box_interior(size: float = 1.0, half_depth: float = 1.0):
+    """Cornell-box interior walls as named quads facing inward: a
+    [-s, s] x [-s, s] x [-d, d] box centred at the origin.  Returns a dict
+    name -> Mesh (floor, ceiling, back, left, right)."""
+    s = size
+    d = half_depth
+    return {
+        # floor (y=-s, normal +y)
+        "floor": quad([-s, -s, d], [s, -s, d], [s, -s, -d], [-s, -s, -d]),
+        # ceiling (y=+s, normal -y)
+        "ceiling": quad([-s, s, -d], [s, s, -d], [s, s, d], [-s, s, d]),
+        # back wall (z=-d, normal +z)
+        "back": quad([-s, -s, -d], [s, -s, -d], [s, s, -d], [-s, s, -d]),
+        # left wall (x=-s, normal +x)
+        "left": quad([-s, -s, -d], [-s, -s, d], [-s, s, d], [-s, s, -d]),
+        # right wall (x=+s, normal -x)
+        "right": quad([s, -s, d], [s, -s, -d], [s, s, -d], [s, s, d]),
+    }
 
 
 def uv_sphere(radius: float = 1.0, n_theta: int = 32, n_phi: int = 64,
@@ -133,8 +249,13 @@ def _smooth_mesh(pos, indices, iters: int = 2):
 
 
 def bunny(scale: float = 1.0, subdiv: int = 48) -> Mesh:
-    """Procedural 'bunny': a unit sphere displaced by a few fixed
-    low-frequency bumps (head, ears, tail), 4 * subdiv^2 triangles."""
+    """'Bunny' hero mesh: the scan ``ASSET_DIR/bunny.obj`` fitted to a
+    height of 1.15 * scale when it is there, else procedural: a unit
+    sphere displaced by a few fixed low-frequency bumps (head, ears, tail),
+    4 * subdiv^2 triangles."""
+    real = try_load_asset("bunny.obj", fit_height=1.15 * scale)
+    if real is not None:
+        return real
     m = uv_sphere(1.0, subdiv, subdiv * 2)
     p = m.positions.copy()
     n = m.normals
@@ -157,8 +278,14 @@ def bunny(scale: float = 1.0, subdiv: int = 48) -> Mesh:
 
 
 def dragon(scale: float = 1.0, n_u: int = 256, n_v: int = 24) -> Mesh:
-    """Procedural 'dragon': a (2,3) torus knot swept with a varying-radius
-    tube, 2 * n_u * n_v triangles."""
+    """'Dragon' hero mesh: the scan ``ASSET_DIR/dragon.min.obj``, else
+    ``dragon.obj``, fitted to a height of 0.9 * scale when it is there,
+    else procedural: a (2,3) torus knot swept with a varying-radius tube,
+    2 * n_u * n_v triangles."""
+    for name in ("dragon.min.obj", "dragon.obj"):
+        real = try_load_asset(name, fit_height=0.9 * scale)
+        if real is not None:
+            return real
     u = np.linspace(0.0, 2.0 * np.pi, n_u, endpoint=False)
     cx = np.cos(2 * u) * (2.0 + np.cos(3 * u))
     cy = np.sin(3 * u) * 0.6

@@ -1,17 +1,24 @@
 """Spectral subsystem: dense-grid spectra, CIE data, hero-wavelength
-sampling and the RGB->spectrum table lookup."""
-from .cie import (GLASSES, METALS, cie_x, cie_y, cie_z, glass_eta,
-                  illum_d6500, metal_eta_k)
+sampling and the RGB->spectrum sigmoid-polynomial tables (lookup and
+fitter)."""
+from .cie import (GLASSES, METALS, blackbody, cie_d, cie_x, cie_y,
+                  cie_y_integral, cie_z, glass_eta, illum_a, illum_d60,
+                  illum_d5000, illum_d6500, illum_f, metal_eta_k)
 from .grid import (DENSE_LAMBDA, LAMBDA_MAX, LAMBDA_MIN, N_DENSE,
                    bake_piecewise, eval_dense, inner_product)
-from .rgb2spec import get_table, lookup_coeffs
-from .sampled import (N_SPECTRUM_SAMPLES, SampledWavelengths, max_value,
-                      sample_uniform, terminate_secondary)
+from .rgb2spec import (albedo_eval, fit_table, get_table, illuminant_eval,
+                       lookup_coeffs, sigmoid_poly, sigmoid_poly_max_value,
+                       unbounded_eval)
+from .sampled import (N_SPECTRUM_SAMPLES, SampledWavelengths, average,
+                      max_value, safe_div, sample_uniform, terminate_secondary)
 
 __all__ = [
-    "DENSE_LAMBDA", "GLASSES", "LAMBDA_MAX", "LAMBDA_MIN", "METALS",
-    "N_DENSE", "N_SPECTRUM_SAMPLES", "SampledWavelengths", "bake_piecewise",
-    "cie_x", "cie_y", "cie_z", "eval_dense", "get_table", "glass_eta",
-    "illum_d6500", "inner_product", "lookup_coeffs", "max_value",
-    "metal_eta_k", "sample_uniform", "terminate_secondary",
+    "DENSE_LAMBDA", "LAMBDA_MAX", "LAMBDA_MIN", "N_DENSE", "N_SPECTRUM_SAMPLES",
+    "SampledWavelengths", "albedo_eval", "average", "bake_piecewise",
+    "blackbody", "cie_d", "cie_x", "cie_y", "cie_y_integral", "cie_z",
+    "eval_dense", "fit_table", "get_table", "glass_eta", "illum_a",
+    "illum_d60", "illum_d5000", "illum_d6500", "illum_f", "illuminant_eval",
+    "inner_product", "lookup_coeffs", "max_value", "metal_eta_k", "safe_div",
+    "sample_uniform", "sigmoid_poly", "sigmoid_poly_max_value",
+    "terminate_secondary", "unbounded_eval", "GLASSES", "METALS",
 ]

@@ -1,9 +1,14 @@
-"""The spectral data the port needs: the CIE 1931 CMFs, the D65
-illuminant, the measured complex IOR of the metal presets and the
-Sellmeier dispersion of the glass presets.
+"""CIE colorimetric data and physical spectra presets.
 
-Counterpart of the matching parts of ``tpu_pathtracer/spectrum/cie.py``;
-every function returns a dense (470,) float64 numpy array.
+Counterpart of ``tpu_pathtracer/spectrum/cie.py``: the CIE 1931 CMFs (the
+standard 1nm tables, with the Wyman-Sloan-Shirley analytic fit as a
+cross-check), Planck's black body, illuminant A, the CIE daylight model
+(``cie_d``, D50, D65), ACES D60, the measured F1-F12 fluorescents, the
+measured complex IOR of the metal presets and the Sellmeier dispersion of
+the glass presets.  Every function returns a dense (470,) float64 numpy
+array on the grid of ``spectrum.grid`` unless noted (read-only where
+cached).  Illuminants marked normalized are divided by their inner product
+with ybar.
 """
 from __future__ import annotations
 
@@ -14,6 +19,12 @@ import numpy as np
 from . import measured_data as _md
 from .cie_cmf_data import CIE_X_1NM, CIE_Y_1NM, CIE_Z_1NM
 from .grid import DENSE_LAMBDA, bake_piecewise, inner_product
+
+__all__ = [
+    "cie_x", "cie_y", "cie_z", "cie_y_integral", "blackbody",
+    "illum_a", "illum_d5000", "illum_d60", "illum_d6500", "illum_f",
+    "cie_d", "metal_eta_k", "glass_eta", "METALS", "GLASSES",
+]
 
 _CMF_LAMBDA = 360.0 + np.arange(471.0)
 
@@ -38,12 +49,114 @@ def cie_z() -> np.ndarray:
     return _readonly(np.interp(DENSE_LAMBDA, _CMF_LAMBDA, CIE_Z_1NM))
 
 
+def _pw_gauss(lam, alpha, mu, s1, s2):
+    """Piecewise Gaussian with split std-dev (Wyman et al. eq. 2)."""
+    t = (lam - mu) * np.where(lam < mu, s1, s2)
+    return alpha * np.exp(-0.5 * t * t)
+
+
+def cie_x_analytic() -> np.ndarray:
+    """Wyman-Sloan-Shirley multi-Gaussian xbar fit (<1% error), an
+    independent cross-check of the standard table."""
+    lam = DENSE_LAMBDA
+    return (_pw_gauss(lam, 0.362, 442.0, 0.0624, 0.0374)
+            + _pw_gauss(lam, 1.056, 599.8, 0.0264, 0.0323)
+            + _pw_gauss(lam, -0.065, 501.1, 0.0490, 0.0382))
+
+
+def cie_y_analytic() -> np.ndarray:
+    lam = DENSE_LAMBDA
+    return (_pw_gauss(lam, 0.821, 568.8, 0.0213, 0.0247)
+            + _pw_gauss(lam, 0.286, 530.9, 0.0613, 0.0322))
+
+
+def cie_z_analytic() -> np.ndarray:
+    lam = DENSE_LAMBDA
+    return (_pw_gauss(lam, 1.217, 437.0, 0.0845, 0.0278)
+            + _pw_gauss(lam, 0.681, 459.0, 0.0385, 0.0725))
+
+
+@lru_cache(maxsize=None)
+def cie_y_integral() -> float:
+    """1nm Riemann sum of ybar over the grid (~106.9 for the true CMF)."""
+    return float(np.sum(cie_y()))
+
+
+_H = 6.62607015e-34
+_C = 2.99792458e8
+_KB = 1.380649e-23
+
+
+def blackbody(temperature_k: float, normalize: bool = True) -> np.ndarray:
+    """Planck spectral radiance on the dense grid; when ``normalize`` the
+    curve is scaled so that its peak (Wien) value is 1."""
+    lam_m = DENSE_LAMBDA * 1e-9
+    le = (2.0 * _H * _C * _C) / (lam_m ** 5 * (np.exp(_H * _C / (lam_m * _KB * temperature_k)) - 1.0))
+    if normalize:
+        lam_max = 2.8977721e-3 / temperature_k
+        peak = (2.0 * _H * _C * _C) / (lam_max ** 5 * (np.exp(_H * _C / (lam_max * _KB * temperature_k)) - 1.0))
+        le = le / peak
+    return le
+
+
 def _normalize_illum(dense: np.ndarray) -> np.ndarray:
     """Divide by <illum, ybar>."""
     y_self = inner_product(dense, cie_y())
     if y_self == 0.0:
         return np.zeros_like(dense)
     return dense / y_self
+
+
+@lru_cache(maxsize=None)
+def illum_a() -> np.ndarray:
+    """CIE standard illuminant A: Planck at 2856 K (normalized)."""
+    return _readonly(_normalize_illum(blackbody(2856.0, normalize=False)))
+
+
+# Standard CIE daylight components at 10nm from 300 to 830 nm.
+_S_LAMBDA = np.arange(300.0, 840.0, 10.0)
+_S0 = np.array([
+    0.04, 6.0, 29.6, 55.3, 57.3, 61.8, 61.5, 68.8, 63.4, 65.8,
+    94.8, 104.8, 105.9, 96.8, 113.9, 125.6, 125.5, 121.3, 121.3, 113.5,
+    113.1, 110.8, 106.5, 108.8, 105.3, 104.4, 100.0, 96.0, 95.1, 89.1,
+    90.5, 90.3, 88.4, 84.0, 85.1, 81.9, 82.6, 84.9, 81.3, 71.9,
+    74.3, 76.4, 63.3, 71.7, 77.0, 65.2, 47.7, 68.6, 65.0, 66.0,
+    61.0, 53.3, 58.9, 61.9])
+_S1 = np.array([
+    0.02, 4.5, 22.4, 42.0, 40.6, 41.6, 38.0, 42.4, 38.5, 35.0,
+    43.4, 46.3, 43.9, 37.1, 36.7, 35.9, 32.6, 27.9, 24.3, 20.1,
+    16.2, 13.2, 8.6, 6.1, 4.2, 1.9, 0.0, -1.6, -3.5, -3.5,
+    -5.8, -7.2, -8.6, -9.5, -10.9, -10.7, -12.0, -14.0, -13.6, -12.0,
+    -13.3, -12.9, -10.6, -11.6, -12.2, -10.2, -7.8, -11.2, -10.4, -10.6,
+    -9.7, -8.3, -9.3, -9.8])
+_S2 = np.array([
+    0.0, 2.0, 4.0, 8.5, 7.8, 6.7, 5.3, 6.1, 3.0, 1.2,
+    -1.1, -0.5, -0.7, -1.2, -2.6, -2.9, -2.8, -2.6, -2.6, -1.8,
+    -1.5, -1.3, -1.2, -1.0, -0.5, -0.3, 0.0, 0.2, 0.5, 2.1,
+    3.2, 4.1, 4.7, 5.1, 6.7, 7.3, 8.6, 9.8, 10.2, 8.3,
+    9.6, 8.5, 7.0, 7.6, 8.0, 6.7, 5.2, 7.4, 6.8, 7.0,
+    6.4, 5.5, 6.1, 6.5])
+
+
+def cie_d(temperature: float, normalized: bool = True) -> np.ndarray:
+    """CIE D-series daylight at the given nominal temperature, with the
+    reference's 1.4388/1.4380 CCT rescale and its black-body fallback
+    below 4000 K."""
+    cct = temperature / 1.4388 * 1.4380
+    if cct < 4000.0:
+        dense = blackbody(cct)
+        return _normalize_illum(dense) if normalized else dense
+    if cct < 7000.0:
+        x = -4.607e9 / cct**3 + 2.9678e6 / cct**2 + 0.09911e3 / cct + 0.244063
+    else:
+        x = -2.0064e9 / cct**3 + 1.9018e6 / cct**2 + 0.24748e3 / cct + 0.23704
+    y = -3.0 * x * x + 2.870 * x - 0.275
+    m = 0.0241 + 0.2562 * x - 0.7341 * y
+    m1 = (-1.3515 - 1.7703 * x + 5.9114 * y) / m
+    m2 = (0.0300 - 31.4424 * x + 30.0717 * y) / m
+    spd = (_S0 + m1 * _S1 + m2 * _S2) * 0.01
+    dense = bake_piecewise(_S_LAMBDA, spd)
+    return _normalize_illum(dense) if normalized else dense
 
 
 # CIE D65 standard relative SPD, 5nm anchors 300-830 nm (standard table).
@@ -71,16 +184,10 @@ def illum_d6500() -> np.ndarray:
     return _readonly(_normalize_illum(bake_piecewise(_D65_LAMBDA, _D65)))
 
 
-# metal presets -> (eta, k) table names in measured_data
-_METAL_TABLES = {
-    "au": ("AU_ETA", "AU_K"),
-    "ag": ("AG_ETA", "AG_K"),
-    "cu": ("CU_ETA", "CU_K"),
-    "al": ("AL_ETA", "AL_K"),
-    "cuzn": ("CU_ZN_ETA", "CU_ZN_K"),
-}
-
-METALS = tuple(_METAL_TABLES)
+@lru_cache(maxsize=None)
+def illum_d5000() -> np.ndarray:
+    """CIE D50 (``cie_d(5000)``, normalized)."""
+    return _readonly(cie_d(5000.0))
 
 
 def _bake_interleaved(flat) -> np.ndarray:
@@ -88,6 +195,35 @@ def _bake_interleaved(flat) -> np.ndarray:
     grid."""
     arr = np.asarray(flat, dtype=np.float64)
     return bake_piecewise(arr[0::2], arr[1::2])
+
+
+@lru_cache(maxsize=None)
+def illum_d60() -> np.ndarray:
+    """ACES nominal white: the measured ACES_ILLUM_D60 table
+    (normalized)."""
+    return _readonly(_normalize_illum(_bake_interleaved(_md.ACES_ILLUM_D60)))
+
+
+@lru_cache(maxsize=None)
+def illum_f(index: int) -> np.ndarray:
+    """CIE F1..F12 fluorescent SPD from the measured 5nm tables
+    (normalized)."""
+    table = getattr(_md, f"CIE_ILLUM_F{index}")
+    return _readonly(_normalize_illum(_bake_interleaved(table)))
+
+
+# metal presets -> (eta, k) table names in measured_data
+_METAL_TABLES = {
+    "au": ("AU_ETA", "AU_K"),
+    "ag": ("AG_ETA", "AG_K"),
+    "cu": ("CU_ETA", "CU_K"),
+    "al": ("AL_ETA", "AL_K"),
+    "cuzn": ("CU_ZN_ETA", "CU_ZN_K"),
+    "mgo": ("MG_O_ETA", "MG_O_K"),
+    "tio2": ("TI_O2_ETA", "TI_O2_K"),
+}
+
+METALS = tuple(_METAL_TABLES)
 
 
 @lru_cache(maxsize=None)

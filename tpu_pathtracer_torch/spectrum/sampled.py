@@ -8,7 +8,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..utils.vec import S4, s4_max
+from ..utils.vec import S4, s4_max, s4_mean, smap
 from .grid import LAMBDA_MAX, LAMBDA_MIN
 
 N_SPECTRUM_SAMPLES = 4
@@ -62,6 +62,17 @@ def terminate_secondary(wl: SampledWavelengths,
              torch.where(fire, zero, p.c),
              torch.where(fire, zero, p.d))
     return SampledWavelengths(lam=wl.lam, pdf=pdf, bank=wl.bank)
+
+
+def safe_div(a: S4, b: S4) -> S4:
+    """Elementwise a/b with 0 where b == 0."""
+    return smap(lambda x, y: torch.where(
+        y == 0.0, 0.0, x / torch.where(y == 0.0, 1.0, y)), a, b)
+
+
+def average(s: S4):
+    """Mean over the 4 lanes."""
+    return s4_mean(s)
 
 
 def max_value(s: S4):
