@@ -51,6 +51,18 @@ line per phase; any failed check raises and the script exits non-zero.
            rays are in the instances' object space (directions not of unit
            length), bounded by the main soup's closest hit, the lanes
            outside an instance's box dead.
+  graph    scene 17 at the main path's size, fast and precise:
+           ``render_wavefront``'s tiles with their steps replayed from one
+           captured CUDA graph against the eager step loop (its plain
+           version), in turns (eager, graph, graph, eager).  Gates: the
+           films equal bit for bit, the same rays and steps, each kernel
+           launched once a step both ways, and in a profiled replay the
+           traversal kernels of the trace equal the launches the capture
+           recorded.  Reports ms a step, Mray/s and peak device memory of
+           each way, the capture's seconds, and a steady step of each
+           (device ms, busy share, device ops; ``profile_step``).
+           Every render below runs through the graph, as ``render`` does
+           on a card.
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render.  Checks: K1 and K2 launch counts equal the
@@ -270,9 +282,10 @@ def device_ms(fn, reps: int) -> float:
 def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg,
                      max_steps=None) -> dict:
     """The launches the integrator makes of each kernel wrapper in every
-    wavefront step of the first tile, its steps run as ``render_wavefront``
+    wavefront step of the first tile, its steps run as the eager step loop
     runs them (until the all-done flag, read every ``SYNC_EVERY`` steps, or
-    after ``max_steps`` steps): {wrapper name: [(BVH, rays), ...]} in
+    after ``max_steps`` steps; a graph replay runs no wrapper, and replays
+    the same steps): {wrapper name: [(BVH, rays), ...]} in
     launch order; an instanced scene launches each kernel on the main
     soup's BVH, then on each group's.  ``launches_on`` picks one BVH's."""
     from tpu_pathtracer_torch.render.sampler import make_sampler
@@ -305,8 +318,7 @@ def record_tile_rays(cuda_trace, integ, scene, meta, cam, cfg,
                 state = integ._wavefront_step(scene, meta, cam, cfg, sampler,
                                               px, cfg.spp, state, table)
                 steps += 1
-            done = ~state["tracing"] & (state["sample"] + 1 >= cfg.spp)
-            if bool(done.all()):
+            if integ._tile_done(state, cfg.spp):
                 break
         torch.cuda.synchronize()
     finally:
@@ -483,7 +495,8 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
     """One main path: 1 spp warm-up, launch counts set to 0, the timed
     render, the counts read.  ``expect`` kernels must have been launched
     1 + G times per wavefront step (once on the main soup, once on each of
-    the scene's G instanced groups), ``forbid`` kernels not at all.
+    the scene's G instanced groups), ``forbid`` kernels not at all; a
+    replay of the captured step counts the launches its capture recorded.
     Returns (image, launches)."""
     integ.render(scene, meta, cam, dataclasses.replace(cfg, spp=1))
     torch.cuda.synchronize()
@@ -521,6 +534,124 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
     if nonfinite or min(mean_rgb) <= 0.0:
         raise AssertionError(f"{phase}: non-finite or black output")
     return img, launches
+
+
+def graph_vs_eager(integ, cuda_trace, scene, meta, cam, cfg, expect):
+    """``render_wavefront``'s tile loop with each tile's steps replayed
+    from the captured step, against the eager step loop (its plain
+    version), in turns (eager, graph, graph, eager).  Gates: the films
+    equal bit for bit (each way also equal to its own repeat), the same
+    rays and steps, the ``expect`` kernels launched 1 + G times a step
+    both ways (G instanced groups) and no other.  Returns each way's
+    seconds, ms a step, Mray/s and peak device memory."""
+    from tpu_pathtracer_torch.render import film as film_mod
+
+    films, ways = {}, {False: [], True: []}
+    for graphed in (False, True, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_trace.reset_launch_counts()
+        t0 = time.perf_counter()
+        film, stats = integ._wavefront_film(scene, meta, cam, cfg, 0, None,
+                                            None, graphed=graphed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ways[graphed].append(dict(
+            s=wall, stats=stats, peak=torch.cuda.max_memory_allocated(),
+            launches={k: cuda_trace.LAUNCHES[k] for k in (*KERNELS, *V1)}))
+        if graphed not in films:
+            films[graphed] = film
+        elif not torch.equal(film, films[graphed]):
+            raise AssertionError(f"graph: two {('eager', 'graph')[graphed]} "
+                                 f"renders differ ({cfg})")
+        del film
+    equal = torch.equal(films[True], films[False])
+    rmse = display_rmse(*(film_mod.finalize(films[g], cfg.spp,
+                                            tone_map=cfg.tone_map,
+                                            eotf=cfg.eotf)
+                          for g in (True, False)))
+    del films
+    out = dict(film_equal=equal, display_rmse=rmse)
+    for graphed, runs in ways.items():
+        st = runs[0]["stats"]
+        secs = [r["s"] for r in runs]
+        out["graph" if graphed else "eager"] = dict(
+            seconds=secs, steps=st.n_steps, rays=st.n_rays,
+            ms_per_step=[x * 1e3 / st.n_steps for x in secs],
+            mray_s=[st.n_rays / x / 1e6 for x in secs],
+            peak_mem_bytes=[r["peak"] for r in runs],
+            launches=runs[0]["launches"])
+    if not equal:
+        raise AssertionError(f"graph: the graph film differs from the eager "
+                             f"film ({cfg}; display RMSE {rmse})")
+    first = ways[False][0]["stats"]
+    if any(r["stats"] != first for runs in ways.values() for r in runs):
+        raise AssertionError(f"graph: steps or rays differ: {out}")
+    want = {k: (first.n_steps * (1 + len(scene.instanced)) if k in expect
+                else 0) for k in (*KERNELS, *V1)}
+    if any(r["launches"] != want for runs in ways.values() for r in runs):
+        raise AssertionError(f"graph: launches differ from {want}: {out}")
+    return out
+
+
+def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
+    """The graph phase on the main path's scene and size, fast and
+    precise: ``graph_vs_eager``, then the captured step alone: the
+    capture's seconds, and a steady step each way (steps 6-9 of the first
+    tile, after 2-5 timed without the profiler) by
+    ``profile_step.profile_steps``: device ms, busy share, device ops.
+    Gate: in a profiled replay the traversal kernels of the trace equal
+    the launches the capture recorded."""
+    from tpu_pathtracer_torch.profile_step import (TRAVERSAL_KERNELS,
+                                                   profile_steps)
+    from tpu_pathtracer_torch.render.sampler import make_sampler
+
+    dev = scene.device
+    for names, c in ((FAST, cfg),
+                     (PRECISE, dataclasses.replace(cfg, precise=True))):
+        summary = graph_vs_eager(integ, cuda_trace, scene, meta, cam, c,
+                                 names)
+        tile = integ.tile_lanes(c)
+        px = integ._pixel_grid(c.width, c.height, dev)[:tile]
+        sampler = make_sampler(c.sampler, c.seed, c.spp, (c.width, c.height))
+        table = integ._spectral_table(scene)
+        accum0 = torch.zeros((tile, 3), device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph = integ._StepGraph(scene, meta, cam, c, sampler, px, 0,
+                                     c.spp, accum0, table)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            try:
+                replay = profile_steps(graph.replay, 4, dev)
+                recorded = dict(graph.launches)
+            finally:
+                graph.release()
+            box = dict(state=integ._wavefront_step(
+                scene, meta, cam, c, sampler, px, c.spp,
+                integ._wavefront_init(tile, 0, accum0), table))
+
+            def eager_step():
+                box["state"] = integ._wavefront_step(
+                    scene, meta, cam, c, sampler, px, c.spp, box["state"],
+                    table)
+            eager = profile_steps(eager_step, 4, dev)
+            del box
+        traced = sum(replay["kernels"][k] for k in TRAVERSAL_KERNELS)
+        steady = {way: {k: p[k] for k in ("step_ms", "profiled_step_ms",
+                                          "device_ms", "busy_share",
+                                          "launches", "kernels")}
+                  for way, p in (("graph", replay), ("eager", eager))}
+        emit("graph", scene=17, width=c.width, height=c.height, spp=c.spp,
+             max_depth=c.max_depth, precise=bool(c.precise), **summary,
+             capture_s=capture_s, recorded_launches_per_replay=recorded,
+             traced_kernels_per_replay=traced, steady_step=steady,
+             top_kernels_replayed=replay["top_kernels"][:6])
+        if recorded != {k: 1 for k in names} or traced != len(names):
+            raise AssertionError(f"graph: the capture recorded {recorded}, "
+                                 f"a profiled replay traced {traced} "
+                                 "traversal kernels")
 
 
 def display_rmse(a, b) -> float:
@@ -1152,6 +1283,9 @@ def main() -> int:
         / kernel_rows["closest_hit"]["ms"],
         any=kernel_rows["any_hit_precise"]["ms"]
         / kernel_rows["any_hit"]["ms"]))
+
+    # ---- graph: the captured step against the eager step loop ----------------
+    check_graph(integ, cuda_trace, scene, meta, cam, cfg)
 
     # ---- render: the fast and the precise main paths --------------------------
     helpers = (integ, cuda_trace, tm_mod, eotf_mod)

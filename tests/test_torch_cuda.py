@@ -312,3 +312,50 @@ def test_loss_and_grads_on_card_match_cpu(dev, precise):
         np.testing.assert_allclose(got.numpy(), g.numpy(), rtol=0,
                                    atol=1e-2 * float(g.abs().max()) + 1e-12,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
+def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
+    """``render_wavefront`` on the card replays one captured step: scene 17
+    at 64x48, 2 spp, depth 6, in three tiles of 1,024 lanes (the last one
+    padded).  Its film equals the eager step loop's bit for bit, with the
+    same rays, steps and kernel launches (each kernel once a step); it
+    never runs the eager loop; a second call does not raise the peak
+    device memory, and after a call the memory in use is what it was."""
+    from tpu_pathtracer_torch.render import integrator as tint
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    s, m, c = load_scene(17, 64, 48, table_res=16, device=dev)
+    cfg = tint.RenderConfig(width=64, height=48, spp=2, max_depth=6,
+                            precise=precise, tile_rays=1024)
+    runs = {}
+    for graphed in (False, True):
+        cuda_trace.reset_launch_counts()
+        film, stats = tint._wavefront_film(s, m, c, cfg, 0, None, None,
+                                           graphed=graphed)
+        torch.cuda.synchronize()
+        runs[graphed] = film, stats, {k: v for k, v in
+                                      cuda_trace.LAUNCHES.items() if v}
+    (f0, st0, l0), (f1, st1, l1) = runs[False], runs[True]
+    assert torch.equal(f1, f0)
+    assert st1 == st0 and st0.n_steps >= 3 * tint.SYNC_EVERY
+    names = (("closest_hit_precise", "any_hit_precise") if precise
+             else ("closest_hit", "any_hit"))
+    assert l1 == l0 == {k: st0.n_steps for k in names}
+
+    def no_eager(*a, **k):
+        raise AssertionError("the card ran the eager step loop")
+    monkeypatch.setattr(tint, "_render_tile_eager", no_eager)
+    del runs, f0, f1, film
+    torch.cuda.synchronize()
+    in_use = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    film = tint.render_wavefront(s, m, c, cfg).cpu()
+    torch.cuda.synchronize()
+    first = torch.cuda.max_memory_allocated()
+    assert torch.cuda.memory_allocated() == in_use
+    again = tint.render_wavefront(s, m, c, cfg).cpu()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() <= first
+    assert torch.cuda.memory_allocated() == in_use
+    assert torch.equal(again, film)

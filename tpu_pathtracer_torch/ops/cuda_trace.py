@@ -14,7 +14,10 @@ tensor [ox oy oz dx dy dz t_max] (``ops.trace.pack_rays``).  K1, K3 and
 K2p read its 4-wide rows ``nodes_w`` with ``tri_m12`` (K1) or ``tri9p``;
 K2 walks the binary tree ``nodes_f``, ``nodes_i`` with ``tri_m12``.  For a
 CPU tensor a wrapper runs the plain version; for a CUDA tensor it launches
-the kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel name.
+the kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel name;
+a wrapper called while a CUDA graph is captured launches nothing, so
+``captured_launches`` takes its counts back out, and each replay of the
+graph adds them.
 ``any_hit_precise_v1`` launches the binary walk (``tri9``) that K2p
 replaced: the yardstick of its times, called by no render path.
 
@@ -26,6 +29,7 @@ vectorised PyTorch, for the tests of the wide layout.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +63,20 @@ _LIB = None
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a Counter that, on exit, holds
+    the launches the wrappers counted inside, which are taken back out of
+    ``LAUNCHES`` (a capture records the kernels, it does not run them)."""
+    before = collections.Counter(LAUNCHES)
+    recorded = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        recorded.update(LAUNCHES - before)
+        LAUNCHES.subtract(recorded)
 
 
 # ---------------------------------------------------------------------------

@@ -239,12 +239,21 @@ class Hit(NamedTuple):
     hit: torch.Tensor      # (R,) bool
 
 
+def _t_max_lanes(t_max, like):
+    """t_max, a python float or a tensor, as float32 lanes of ``like``'s
+    (R,) shape on its device; a float is filled in on the device (no host
+    copy, so a CUDA graph can capture the query)."""
+    if isinstance(t_max, torch.Tensor):
+        return torch.broadcast_to(
+            t_max.to(device=like.device, dtype=torch.float32), like.shape)
+    return torch.full(like.shape, t_max, dtype=torch.float32,
+                      device=like.device)
+
+
 def pack_rays(ray_o, ray_d, t_max, active=None):
     """(7, R) float32 [ox oy oz dx dy dz t_max]; inactive rays get
     t_max = -1 so the kernels treat them as dead."""
-    r = ray_o.x.shape[0]
-    t0 = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                            device=ray_o.x.device), (r,))
+    t0 = _t_max_lanes(t_max, ray_o.x)
     if active is not None:
         t0 = torch.where(active, t0, -1.0)
     return torch.stack([ray_o.x, ray_o.y, ray_o.z,
@@ -342,8 +351,7 @@ def intersect_scene(scene, ray_o, ray_d, t_max=BIG_T, active=None,
                      precise=precise)
     r = ray_o.x.shape[0]
     base = scene.bvh.tri9.shape[0]
-    t0 = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                            device=ray_o.x.device), (r,))
+    t0 = _t_max_lanes(t_max, ray_o.x)
     for g in scene.instanced:
         n_inst = g.inv.shape[0]
         tc = g.bvh.tri9.shape[0]
@@ -373,9 +381,7 @@ def intersect_p_scene(scene, ray_o, ray_d, t_max, active=None,
     rays already occluded go in inactive."""
     occ = intersect_p(scene.bvh, ray_o, ray_d, t_max, active=active,
                       precise=precise)
-    t0 = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                            device=ray_o.x.device),
-                            occ.shape)
+    t0 = _t_max_lanes(t_max, occ)
     for g in scene.instanced:
         n_inst = g.inv.shape[0]
         o_all, d_all = _inst_rays(g, ray_o, ray_d)

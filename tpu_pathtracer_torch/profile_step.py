@@ -1,20 +1,31 @@
-"""Where a wavefront step's time goes on the GPU (run: python3 -m
-tpu_pathtracer_torch.profile_step).
+"""Where a wavefront step's time goes on the GPU, eager and replayed from a
+captured CUDA graph (run: python3 -m tpu_pathtracer_torch.profile_step
+[--scene N] [--precise]).
 
-Builds scene 17 at 1024x1024 (table_res 64), the MIS + Z-Sobol config of
-chip_smoke.py (``--precise``: with the watertight hit test), and runs the
-first tile's wavefront: WARMUP steps, then
-STEPS steps under ``torch.profiler`` (CPU + CUDA).  The integrator's
-module functions are wrapped in ``record_function`` ranges here, so the
-package itself carries no instrumentation.  Prints one JSON line:
+Builds scene N (default 17) at 1024x1024 (table_res 64), MIS + Z-Sobol,
+depth 16, 4 spp (``--precise``: with the watertight hit test), and runs
+the first tile's wavefront: WARMUP eager steps, then from that state
+STEPS steps each way: as eager ops, and (on a CUDA device) as replays of
+the step captured as ``render_wavefront`` captures it.  Each way is timed
+without the profiler, then profiled (CPU + CUDA).  The eager steps run
+inside ``record_function`` ranges of the integrator's module functions,
+wrapped here, so the package itself carries no instrumentation (a replay
+runs no Python, so a graph has no ranges).  Prints one JSON line, with for
+``eager`` and ``graph``:
 
   step_ms          host wall per step without the profiler (synchronised)
   profiled_step_ms the same under the profiler
   device_ms        summed CUDA kernel and copy time per step
   busy_share       device_ms / step_ms
-  launches         CUDA kernel launches per step
-  ranges_cpu_ms    inclusive host time per step of each wrapped function
+  launches         device ops (kernels, copies) per step
+  kernels          per step, the launches of each traversal kernel
   top_kernels      the 12 kernels with the most device time per step
+  ranges_cpu_ms    (eager) inclusive host time per step of each range
+
+and for the graph its ``capture_s`` (the first step run eagerly, the
+capture and the instantiation) and ``recorded_launches`` (the wrappers'
+launches counted while capturing, added to ``cuda_trace.LAUNCHES`` on each
+replay).
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ import torch
 
 WARMUP = 6
 STEPS = 4
+# the traversal kernels of csrc/trace_kernels.cu, by their names in a trace
+TRAVERSAL_KERNELS = ("team_kernel", "binary_any_hit_kernel")
 
 
 def _wrap(module, name, label):
@@ -37,10 +50,58 @@ def _wrap(module, name, label):
         with torch.profiler.record_function(label):
             return fn(*a, **kw)
     setattr(module, name, wrapped)
+    return fn
+
+
+def profile_steps(run_step, n: int, dev, ranges=()) -> dict:
+    """Time ``n`` calls of ``run_step`` without the profiler (host wall,
+    synchronised), then profile ``n`` more (CPU + CUDA activity); the
+    caller resets the state between the two if it wants the same steps.
+    Returns the per-step numbers of the module docstring; ``ranges`` are
+    the labels of ``record_function`` ranges to report."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run_step()
+    sync()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run_step()
+        sync()
+        profiled_ms = (time.perf_counter() - t0) / n * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device-side events, without the GPU copies of the ranges
+    device = [e for e in events if e.device_type == cuda
+              and e.key not in ranges and e.device_time_total > 0]
+    device_us = sum(e.device_time_total for e in device)
+    top = sorted(device, key=lambda e: -e.device_time_total)[:12]
+    return dict(
+        step_ms=step_ms, profiled_step_ms=profiled_ms,
+        device_ms=device_us / n / 1e3,
+        busy_share=device_us / 1e3 / n / step_ms,
+        launches=sum(e.count for e in device) / n,
+        kernels={k: sum(e.count for e in device if k in e.key) / n
+                 for k in TRAVERSAL_KERNELS},
+        ranges_cpu_ms={e.key: e.cpu_time_total / n / 1e3 for e in events
+                       if e.key in ranges and e.device_type != cuda},
+        top_kernels=[dict(name=e.key[:80],
+                          ms=e.device_time_total / n / 1e3,
+                          calls=e.count / n) for e in top])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", type=int, default=17, help="scene number")
     ap.add_argument("--size", type=int, default=1024, help="film width = height")
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' rehearses on the plain versions")
@@ -57,7 +118,7 @@ def main() -> int:
 
     dev = resolve_device(args.device)
     W = H = args.size
-    scene, meta, cam = load_scene(17, W, H, table_res=64, device=dev)
+    scene, meta, cam = load_scene(args.scene, W, H, table_res=64, device=dev)
     cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16,
                              precise=args.precise)
     tile = integ.tile_lanes(cfg)
@@ -77,62 +138,52 @@ def main() -> int:
         (sampler_mod.ZSobolSampler, "get_1d"): "sampler.get_1d",
         (sampler_mod.ZSobolSampler, "get_2d"): "sampler.get_2d",
     }
-    for (mod, name), label in labels.items():
-        _wrap(mod, name, label)
+    real = {key: _wrap(*key, label) for key, label in labels.items()}
     # the integrator and lights imported these names directly
     integ.make_interaction = surface.make_interaction
 
     sampler = make_sampler("sobol", cfg.seed, cfg.spp, (W, H))
     table = integ._spectral_table(scene)
-    state = integ._wavefront_init(tile, 0, torch.zeros((tile, 3), device=dev))
+    accum0 = torch.zeros((tile, 3), device=dev)
+    state = integ._wavefront_init(tile, 0, accum0)
     for _ in range(WARMUP):
         state = integ._wavefront_step(scene, meta, cam, cfg, sampler, px,
                                       cfg.spp, state, table)
+    steady = integ._state_leaves(state)
+    box = dict(state=state)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+    def eager_step():
+        box["state"] = integ._wavefront_step(scene, meta, cam, cfg, sampler,
+                                             px, cfg.spp, box["state"], table)
 
-    # step wall without the profiler, then the same number of steps under it
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        state = integ._wavefront_step(scene, meta, cam, cfg, sampler, px,
-                                      cfg.spp, state, table)
-    sync()
-    step_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU]
+    out = dict(device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu"), scene=args.scene, lanes=tile,
+               steps=STEPS, warmup_steps=WARMUP, precise=args.precise)
+    out["eager"] = profile_steps(eager_step, STEPS, dev,
+                                 ranges=set(labels.values()))
     if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            state = integ._wavefront_step(scene, meta, cam, cfg, sampler,
-                                          px, cfg.spp, state, table)
-        sync()
-        profiled_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    events = prof.key_averages()
-    names = set(labels.values())
-    cuda = torch.autograd.DeviceType.CUDA
-    # device-side events, without the GPU copies of the ranges above
-    kernels = [e for e in events if e.device_type == cuda
-               and e.key not in names and e.device_time_total > 0]
-    device_us = sum(e.device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    ranges = {e.key: e.cpu_time_total / STEPS / 1e3 for e in events
-              if e.key in names and e.device_type != cuda}
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    print(json.dumps(dict(
-        device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "cpu"), lanes=tile, steps=STEPS,
-        precise=args.precise,
-        step_ms=step_ms, profiled_step_ms=profiled_ms,
-        device_ms=device_us / STEPS / 1e3,
-        busy_share=device_us / 1e3 / STEPS / step_ms,
-        launches=launches / STEPS, ranges_cpu_ms=ranges,
-        top_kernels=[dict(name=e.key[:80],
-                          ms=e.device_time_total / STEPS / 1e3,
-                          calls=e.count / STEPS) for e in top])))
+        # the package's own functions again: a capture records no ranges
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+        integ.make_interaction = surface.make_interaction
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph = integ._StepGraph(scene, meta, cam, cfg, sampler, px, 0,
+                                     cfg.spp, accum0, table)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            try:
+                # the replays start from the eager windows' steady state
+                for dst, src in zip(graph.leaves, steady):
+                    dst.copy_(src)
+                out["graph"] = dict(
+                    profile_steps(graph.replay, STEPS, dev),
+                    capture_s=capture_s,
+                    recorded_launches=dict(graph.launches))
+            finally:
+                graph.release()
+    print(json.dumps(out))
     return 0
 
 

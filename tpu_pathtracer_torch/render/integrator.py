@@ -17,10 +17,16 @@ those of the JAX package:
     lobe decisions), +5 nee light u, +6 nee s, +7..8 nee uv,
     +9 russian roulette.
 
-The JAX package runs the steps of a tile inside one device program; here
-the step loop is a Python loop of eager PyTorch ops, and the host reads
-the tile's all-done flag only every ``SYNC_EVERY`` steps.  Steps after a
-tile is done change nothing (no lane regenerates, traces or finalizes).
+The JAX package runs the steps of a tile inside one device program
+(``_wavefront_chunk``).  Here, on a CUDA device, ``render_wavefront``
+captures one step as a CUDA graph (``_StepGraph``) over static buffers
+(the tile's pixels and the state) and replays it, a chunk of
+``SYNC_EVERY`` steps at a time (``_wavefront_chunk``); the host reads the
+tile's all-done flag after each chunk and copies nothing to the device
+inside one.  On the CPU, which has no graphs, the steps run as eager ops
+(``_render_tile_eager``, also the graph's plain version on the card).
+Steps after a tile is done change nothing (no lane regenerates, traces or
+finalizes), so both give the same film, rays and steps.
 
 Strategy bookkeeping: pt counts every emissive hit; nee counts emissive
 hits only after specular bounces (the camera ray counts as one) and adds
@@ -38,7 +44,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..ops import trace
+from ..ops import cuda_trace, trace
 from ..scene.types import check_ported
 from ..spectrum import grid as sgrid
 from ..spectrum import sampled as swl
@@ -505,16 +511,132 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
     )
 
 
+def _state_leaves(state) -> list:
+    """The tensors of a wavefront state, in the state's key order."""
+    out = []
+    for v in state.values():
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        else:
+            out.extend(getattr(v, f.name) for f in dataclasses.fields(v))
+    return out
+
+
+def _tile_done(state, spp_end: int) -> bool:
+    """Every lane idle with no sample left: the one host read of a chunk."""
+    done = ~state["tracing"] & (state["sample"] + 1 >= spp_end)
+    return bool(done.all())
+
+
+def _render_tile_eager(scene, meta, camera, cfg, sampler, px, spp_start,
+                       spp_end, accum, table):
+    """One tile's steps as eager ops, the all-done flag read every
+    ``SYNC_EVERY`` steps -> (final state, steps run).  The CPU's path, and
+    on the card the plain version of the captured step's replays."""
+    state = _wavefront_init(px.shape[0], spp_start, accum)
+    n_steps = 0
+    while spp_start < spp_end:
+        for _ in range(SYNC_EVERY):
+            state = _wavefront_step(scene, meta, camera, cfg, sampler, px,
+                                    spp_end, state, table)
+            n_steps += 1
+        if _tile_done(state, spp_end):
+            break
+    return state, n_steps
+
+
+class _StepGraph:
+    """One wavefront step captured as a CUDA graph.
+
+    The graph reads its static buffers -- the tile's pixels ``px`` and the
+    state ``state`` -- and its last ops copy the new state back into
+    ``state``, so each replay is the tile's next step.  Built on the first
+    tile: that tile's first step runs eagerly on a side stream (the
+    warm-up: it builds the kernels and the sampler's device tables, and
+    its launches count as any step's), then the step is captured.  The
+    capture launches nothing; each replay adds the wrappers' counts of
+    the capture to ``cuda_trace.LAUNCHES``.  ``release`` frees the graph
+    and its memory pool."""
+
+    def __init__(self, scene, meta, camera, cfg, sampler, px, spp_start,
+                 spp_end, accum, table):
+        self.spp_start, self.spp_end = spp_start, spp_end
+        self.px = px.clone()
+        self.state = _wavefront_init(px.shape[0], spp_start, accum)
+        self.leaves = _state_leaves(self.state)
+
+        def step():
+            new = _wavefront_step(scene, meta, camera, cfg, sampler, self.px,
+                                  spp_end, self.state, table)
+            for dst, src in zip(self.leaves, _state_leaves(new)):
+                dst.copy_(src)
+
+        side = torch.cuda.Stream(device=px.device)
+        side.wait_stream(torch.cuda.current_stream(px.device))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(px.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with cuda_trace.captured_launches() as self.launches:
+            with torch.cuda.graph(self.graph):
+                step()
+        self.steps = 1          # steps of the current tile run so far
+
+    def load(self, px, accum) -> None:
+        """Start the next tile: its pixels, its initial state."""
+        self.px.copy_(px)
+        init = _wavefront_init(px.shape[0], self.spp_start, accum)
+        for dst, src in zip(self.leaves, _state_leaves(init)):
+            dst.copy_(src)
+        self.steps = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        cuda_trace.LAUNCHES.update(self.launches)
+        self.steps += 1
+
+    def release(self) -> None:
+        self.graph.reset()
+        self.px = self.state = self.leaves = None
+
+
+def _wavefront_chunk(graph: _StepGraph) -> bool:
+    """Replays of the captured step up to the tile's next multiple of
+    ``SYNC_EVERY`` steps (as many as the eager loop runs between its
+    reads), then the tile's all-done flag."""
+    while True:
+        graph.replay()
+        if graph.steps % SYNC_EVERY == 0:
+            return _tile_done(graph.state, graph.spp_end)
+
+
 def render_wavefront(scene, meta, camera, cfg: RenderConfig,
                      spp_start: int = 0, spp_end: int | None = None,
                      accum_init=None, with_stats: bool = False):
     """Linear-RGB film sum over samples [spp_start, spp_end) -> (H*W, 3)
-    on the scene's device; with ``with_stats`` also a RenderStats."""
+    on the scene's device; with ``with_stats`` also a RenderStats.
+
+    On a CUDA device each tile's steps are replays of one step captured
+    as a CUDA graph (``_StepGraph``, captured once per call and released
+    at its end); on the CPU they run as eager ops
+    (``_render_tile_eager``).  The film, rays and steps are the same."""
     _check_config(cfg)
     if cfg.strategy not in PATH_STRATEGIES:
         raise ValueError("the wavefront renders pt, nee and mis; "
                          f"got {cfg.strategy!r}")
     check_ported(meta)
+    accum, stats = _wavefront_film(scene, meta, camera, cfg, spp_start,
+                                   spp_end, accum_init,
+                                   graphed=scene.device.type == "cuda")
+    return (accum, stats) if with_stats else accum
+
+
+def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
+                    accum_init, graphed: bool):
+    """``render_wavefront``'s tile loop -> (film, RenderStats): each tile's
+    steps replayed from a captured graph (``graphed``, on a CUDA device)
+    or run as eager ops (the CPU, and the graph's plain version on the
+    card)."""
     dev = scene.device
     spp_end = cfg.spp if spp_end is None else spp_end
     n_px = cfg.width * cfg.height
@@ -528,24 +650,35 @@ def render_wavefront(scene, meta, camera, cfg: RenderConfig,
     outs = []
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     n_steps = 0
-    for k in range(n_tiles):
-        px_tile = pixel_xy[k * tile:(k + 1) * tile]
-        state = _wavefront_init(tile, spp_start, ai[k * tile:(k + 1) * tile])
-        while spp_start < spp_end:
-            for _ in range(SYNC_EVERY):
-                state = _wavefront_step(scene, meta, camera, cfg, sampler,
-                                        px_tile, spp_end, state, table)
-                n_steps += 1
-            done = ~state["tracing"] & (state["sample"] + 1 >= spp_end)
-            if bool(done.all()):
-                break
-        a = state["accum"]
-        outs.append(torch.stack([a.x, a.y, a.z], -1))
-        n_rays = n_rays + state["n_rays"]
+    graph = None
+    try:
+        for k in range(n_tiles):
+            px_tile = pixel_xy[k * tile:(k + 1) * tile]
+            ai_tile = ai[k * tile:(k + 1) * tile]
+            if not graphed or spp_start >= spp_end:
+                state, steps = _render_tile_eager(
+                    scene, meta, camera, cfg, sampler, px_tile, spp_start,
+                    spp_end, ai_tile, table)
+            else:
+                with torch.no_grad(), torch.cuda.device(dev):
+                    if graph is None:
+                        graph = _StepGraph(scene, meta, camera, cfg, sampler,
+                                           px_tile, spp_start, spp_end,
+                                           ai_tile, table)
+                    else:
+                        graph.load(px_tile, ai_tile)
+                    while not _wavefront_chunk(graph):
+                        pass
+                state, steps = graph.state, graph.steps
+            a = state["accum"]
+            outs.append(torch.stack([a.x, a.y, a.z], -1))
+            n_rays = n_rays + state["n_rays"]
+            n_steps += steps
+    finally:
+        if graph is not None:
+            graph.release()
     accum = torch.cat(outs, 0)[:n_px]
-    if with_stats:
-        return accum, RenderStats(n_rays=int(n_rays), n_steps=n_steps)
-    return accum
+    return accum, RenderStats(n_rays=int(n_rays), n_steps=n_steps)
 
 
 def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,

@@ -92,6 +92,13 @@ def _sobol_byte_tables() -> np.ndarray:
     return out
 
 
+@lru_cache(maxsize=None)
+def _sobol_tables_on(device: torch.device) -> torch.Tensor:
+    """``_sobol_byte_tables`` on ``device``, copied there once: a draw
+    copies nothing from the host, so a CUDA graph can capture it."""
+    return torch.from_numpy(_sobol_byte_tables()).to(device)
+
+
 # base-4 digit permutations, PBRT's fixed order, each packed as an 8-bit
 # code (digit d at bits 2d..2d+1)
 _PERMUTATIONS = np.array([
@@ -104,7 +111,23 @@ _PERMUTATIONS = np.array([
 _PERM_CODES = np.sum(_PERMUTATIONS << (2 * np.arange(4, dtype=np.int64))[None, :],
                      axis=1)
 
+
+@lru_cache(maxsize=None)
+def _perm_codes_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_PERM_CODES).to(device)
+
+
 _ONE_MINUS_EPS = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+
+
+def _int_lanes(v, like):
+    """A python integer or an integer tensor -> int64 lanes of ``like``'s
+    shape on its device; a python integer is filled in on the device (no
+    host copy)."""
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v.to(device=like.device, dtype=torch.int64),
+                                  like.shape)
+    return torch.full_like(like, int(v), dtype=torch.int64)
 
 
 def _u32_to_unit_float(v):
@@ -135,8 +158,7 @@ class ZSobolSampler:
     @staticmethod
     def _lanes(v, like):
         """Scalar or per-lane (R,) integer -> int64 (R,) on ``like``'s device."""
-        v = torch.as_tensor(v, device=like.device).to(torch.int64)
-        return torch.broadcast_to(v, like.shape) & M32
+        return _int_lanes(v, like) & M32
 
     def _morton(self, pixel_xy, sample_idx):
         m = morton2(pixel_xy[:, 0], pixel_xy[:, 1])
@@ -145,7 +167,7 @@ class ZSobolSampler:
 
     def _sample_index(self, morton_index, dim):
         """Permuted base-4 digit scramble."""
-        codes = torch.as_tensor(_PERM_CODES, device=morton_index.device)
+        codes = _perm_codes_on(morton_index.device)
         pow2 = (self.log2_spp & 1) == 1
         last_digit = 1 if pow2 else 0
         dim_hash = (dim * 0x55555555) & M32
@@ -165,8 +187,7 @@ class ZSobolSampler:
 
     @staticmethod
     def _sobol_u32(index, matrix: int):
-        tables = torch.as_tensor(_sobol_byte_tables()[matrix],
-                                 device=index.device)
+        tables = _sobol_tables_on(index.device)[matrix]
         v = tables[0][index & 0xFF]
         for b in range(1, 4):
             v = v ^ tables[b][(index >> (8 * b)) & 0xFF]
@@ -243,9 +264,7 @@ class RandomSampler:
         zero = torch.zeros_like(m)
         k0, k1 = zero + ((self.seed >> 32) & M32), zero + (self.seed & M32)
         for v in (dim, sample_idx, m):
-            v = torch.broadcast_to(
-                torch.as_tensor(v, device=m.device).to(torch.int64), m.shape)
-            k0, k1 = _threefry2x32(k0, k1, zero, v & M32)
+            k0, k1 = _threefry2x32(k0, k1, zero, _int_lanes(v, m) & M32)
         return k0, k1
 
     @staticmethod

@@ -7,6 +7,8 @@ loop over the scene's textures with masked merges.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..utils.vec import V2
@@ -38,6 +40,13 @@ def sample_bilinear(tex, uv: V2):
     return top + (bot - top) * fy
 
 
+@lru_cache(maxsize=None)
+def _default_row(values: tuple, device: torch.device) -> torch.Tensor:
+    """A fetch's default values on ``device``, copied there once: a fetch
+    copies nothing from the host, so a CUDA graph can capture it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def sample_indexed(textures, tex_ids, uv: V2, n_channels: int, default):
     """Masked multi-texture fetch -> (R, n_channels).
 
@@ -45,8 +54,8 @@ def sample_indexed(textures, tex_ids, uv: V2, n_channels: int, default):
     ``default`` (a sequence of n_channels values).  A texture with fewer
     channels is broadcast, one with more is cut to n_channels."""
     r = uv.x.shape[0]
-    out = torch.tensor(default, dtype=torch.float32,
-                       device=uv.x.device).expand(r, n_channels)
+    out = _default_row(tuple(float(d) for d in default),
+                       uv.x.device).expand(r, n_channels)
     for tid, tex in enumerate(textures):
         if tex.shape[-1] < n_channels:
             tex = tex.expand(tex.shape[0], tex.shape[1], n_channels)
