@@ -63,6 +63,27 @@ line per phase; any failed check raises and the script exits non-zero.
            (device ms, busy share, device ops; ``profile_step``).
            Every render below runs through the graph, as ``render`` does
            on a card.
+  lockstep scene 17 at the main path's size (4 tiles of 262,144 lanes),
+           fast and precise: the lockstep renders called as a user calls
+           them, each (tile, sample) replayed from one captured sample
+           (``integrator._SampleGraph``) kept between calls, against
+           their eager loops (the private ``graphed=False`` forms, the
+           plain version), eager first: the albedo and normal AOVs
+           (``render_accum``, 4 spp), ``count_rays_one_spp`` and
+           ``parallel.render_sharded`` (no group, MIS + Z-Sobol, depth 16,
+           LOCKSTEP_SHARDED_SPP spp; the same configuration, so the film
+           replays the count's kept graph).  An AOV and the count are
+           called twice through the graph, the first time with no graph
+           kept.  Gates: films and counts equal bit for bit; a first call
+           captures once (one lane count), every other graph call never;
+           the graph's launches exactly tiles x spp closest hit for an
+           AOV, tiles x spp x (1 + 16) closest hit and tiles x spp x 16
+           any hit for the sharded film and the count, the other pair
+           never; the eager loop's no more.  Reports ms, Mray/s (the
+           sharded film's rays are the count x spp), peak device memory,
+           the memory the kept graph holds, the capture's seconds (its
+           eager warm-up sample included) and the ms of a replayed
+           sample (a call with the kept graph over its samples).
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render.  Checks: K1 and K2 launch counts equal the
@@ -95,16 +116,28 @@ line per phase; any failed check raises and the script exits non-zero.
            (plain versions), fast and precise; scenes 8 and 19 the same,
            fast, and scene 7 fast and precise: display RMSE <= 0.01 each.
   train    the differentiable pass (``tpu_pathtracer_torch.parallel``).
-           grad_step: bench.py's grad rung, one ``loss_and_grads`` call on
-           scene 17 at 128x128, 2 spp, depth 8, MIS + Z-Sobol against an
-           all-zero target, timed as bench.py's ``child_grad`` times it (a
-           first call, then the timed call; ``first_call_extra_s`` is the
-           difference), fast and precise: the loss, the count of finite
-           gradient values (must be all of them), the peak device memory
-           of the timed call, and its launches, exact: the lockstep tile
-           launches K1 (K3 precise) 2 x (1 + 8) = 18 times and K2 (K2p)
-           2 x 8 = 16 times, the other pair never; the forward alone
-           (no autograd) launches the same, so the backward launches none.
+           grad_step: bench.py's grad rung, ``loss_and_grads`` on scene
+           17 at 128x128, 2 spp, depth 8, MIS + Z-Sobol against an
+           all-zero target, fast and precise, in the order: the eager
+           program (``_loss_and_grads(..., graphed=False)``, the plain
+           version), the first graph call (the eager warm-up and the
+           capture of forward and backward as one CUDA graph;
+           ``first_call_extra_s`` is its time less a replay's), a replayed
+           call (``step_s``), then the eager program and a replay with
+           other values of every column.  Gates: each graph call's loss
+           equal to the eager loss of its parameters bit for bit, each
+           gradient column within 1e-5 of the eager column's largest
+           magnitude (the backward accumulates with atomics), the other
+           parameters' loss different; every gradient value finite; the
+           launches of every call exact: K1 (K3 precise) 2 x (1 + 8) = 18
+           times and K2 (K2p) 2 x 8 = 16 times, the other pair never; the
+           forward alone (no autograd) launches the same, so the backward
+           launches none; a profiled replay traces as many traversal
+           kernels as the capture recorded; ``release_graphs()`` brings the
+           memory in use back to its level before the first call.
+           Reports each call's seconds and peak device memory, the memory
+           the kept graph holds between calls (allocated and reserved),
+           and the replay's device ops, device ms and busy share.
            adam: the target is scene 17's linear render (``render_accum``
            / spp) at the same size and spp, NEE at one bounce (where the
            gradient is exact); from the dragon's base and coat tint
@@ -117,7 +150,8 @@ line per phase; any failed check raises and the script exits non-zero.
            grad_parity: scene 17 at 32x24, 1 spp, depth 3, fast and
            precise, ``loss_and_grads`` on the card against the CPU's plain
            versions: loss within 1e-3 relative, each gradient column
-           within 1e-2 of its largest magnitude.
+           within 1e-2 of its largest magnitude.  Adam and grad_parity run
+           through the captured graph (one capture per configuration).
   files    file-backed inputs, written to a temporary directory that
            becomes the port's ``mesh.ASSET_DIR``: ``dragon.obj``, the
            procedural dragon at 2304 x 192 (884,736 triangles, about the
@@ -224,8 +258,14 @@ SHADOW_STEPS = (1, *STEPS)
 SMALL_LAUNCH = 65536    # lanes of a 256x256 film's launch
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of results; ``t_s`` is the seconds since the script
+    started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -654,6 +694,149 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
                                  "traversal kernels")
 
 
+# samples of the lockstep phase: the AOVs', and the ray count's and
+# sharded film's, which share one configuration (the film replays the
+# count's kept graph; their eager loops are the phase's longest runs)
+LOCKSTEP_AOV_SPP = 4
+LOCKSTEP_SHARDED_SPP = 1
+
+
+def check_lockstep(integ, cuda_trace, scene, meta, cam, cfg):
+    """The lockstep phase: the AOVs, the ray count and the sharded film of
+    scene 17 at ``cfg``'s size, fast and precise, each called as a user
+    calls it (``render_accum``, ``count_rays_one_spp``,
+    ``parallel.render_sharded``) against its eager loop (the private
+    ``graphed=False`` form, the plain version), eager first.  The first
+    graph call of an AOV or of the count starts from no kept graph and
+    must capture one sample per lane count (each timed: its eager warm-up
+    sample and the capture); a second call replays the kept graph and
+    captures nothing; the sharded film, called after the count with the
+    same configuration, replays the count's graph."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render import graphs
+
+    captures = []     # (lanes, seconds) of each _SampleGraph built
+    real_init = integ._SampleGraph.__init__
+
+    def timed_init(self, scene, meta, camera, cfg, sampler, px, *rest):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_init(self, scene, meta, camera, cfg, sampler, px, *rest)
+        torch.cuda.synchronize()
+        captures.append((px.shape[0], time.perf_counter() - t0))
+
+    dev = scene.device
+    tile = integ.tile_lanes(cfg)
+    n_tiles = cfg.width * cfg.height // tile
+    integ._SampleGraph.__init__ = timed_init
+    try:
+        for names, c in ((FAST, cfg),
+                         (PRECISE, dataclasses.replace(cfg, precise=True))):
+            path = dataclasses.replace(c, spp=LOCKSTEP_SHARDED_SPP)
+            runs = []
+            for a in ("albedo", "normal"):
+                ac = dataclasses.replace(c, strategy=a, spp=LOCKSTEP_AOV_SPP)
+                runs.append((
+                    a, ac, {names[0]: n_tiles * ac.spp}, True,
+                    lambda ac=ac: integ._aov_film(scene, meta, cam, ac, 0,
+                                                  None, None, False),
+                    lambda ac=ac: integ.render_accum(scene, meta, cam, ac)))
+            runs.append((
+                "count_rays_one_spp", path,
+                {names[0]: n_tiles * (1 + path.max_depth),
+                 names[1]: n_tiles * path.max_depth}, True,
+                lambda: integ._count_rays(scene, meta, cam, path, False),
+                lambda: integ.count_rays_one_spp(scene, meta, cam, path)))
+            runs.append((
+                "sharded", path,
+                {names[0]: n_tiles * path.spp * (1 + path.max_depth),
+                 names[1]: n_tiles * path.spp * path.max_depth}, False,
+                lambda: parallel._render_sharded(scene, meta, cam, path,
+                                                 None, dev, graphed=False),
+                lambda: parallel.render_sharded(scene, meta, cam, path)))
+            rays0 = None
+            for label, rc, want, fresh, eager, graph in runs:
+                want = {k: want.get(k, 0) for k in (*KERNELS, *V1)}
+                ways = [("eager", eager), ("graph", graph)]
+                if fresh:
+                    ways.append(("graph_again", graph))
+                out = {}
+                for way, fn in ways:
+                    if way == "graph":
+                        if fresh:
+                            graphs.release_graphs()
+                        # what stays reserved is the kept graphs' pools
+                        torch.cuda.synchronize()
+                        torch.cuda.empty_cache()
+                        base = (torch.cuda.memory_allocated(),
+                                torch.cuda.memory_reserved())
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    cuda_trace.reset_launch_counts()
+                    captures.clear()
+                    t0 = time.perf_counter()
+                    result = fn()
+                    torch.cuda.synchronize()
+                    out[way] = dict(
+                        result=result, s=time.perf_counter() - t0,
+                        peak=torch.cuda.max_memory_allocated(),
+                        captures=list(captures),
+                        launches={k: cuda_trace.LAUNCHES[k] for k in want})
+                torch.cuda.empty_cache()
+                held = dict(
+                    allocated=torch.cuda.memory_allocated() - base[0],
+                    reserved=torch.cuda.memory_reserved() - base[1])
+                ref = out["eager"]["result"]
+                if label == "count_rays_one_spp":
+                    rays0 = ref
+                equal = {way: (o["result"] == ref if label ==
+                               "count_rays_one_spp"
+                               else torch.equal(o["result"], ref))
+                         for way, o in out.items() if way != "eager"}
+                rays = (rays0 * rc.spp if label in ("count_rays_one_spp",
+                                                    "sharded")
+                        else cfg.width * cfg.height * rc.spp)
+                # a call with the kept graph replays every (tile, sample)
+                replayed = out["graph_again" if fresh else "graph"]
+                samples = n_tiles * rc.spp
+                emit("lockstep", scene=17, width=c.width, height=c.height,
+                     run=label, spp=rc.spp, max_depth=rc.max_depth,
+                     precise=bool(c.precise), tiles=n_tiles, equal=equal,
+                     rays=rays, count=rays0, capture_s=[
+                         s for _, s in out["graph"]["captures"]],
+                     ms_per_replayed_sample=replayed["s"] * 1e3 / samples,
+                     held_between_calls_bytes=held,
+                     **{way: dict(ms=o["s"] * 1e3,
+                                  mray_s=rays / o["s"] / 1e6,
+                                  peak_mem_bytes=o["peak"],
+                                  captured_lanes=[n for n, _ in
+                                                  o["captures"]],
+                                  launches=o["launches"])
+                        for way, o in out.items()})
+                if not all(equal.values()):
+                    raise AssertionError(f"lockstep: the {label} graph "
+                                         f"differs from eager ({c})")
+                lanes = {way: [n for n, _ in o["captures"]]
+                         for way, o in out.items()}
+                if lanes != dict(eager=[], graph=[tile] if fresh else [],
+                                 **({"graph_again": []} if fresh else {})):
+                    raise AssertionError(f"lockstep: {label} captured "
+                                         f"{lanes}, expected one capture "
+                                         f"of {tile} lanes on the first "
+                                         "call of a configuration only")
+                got = {way: o["launches"] for way, o in out.items()}
+                if any(n != want for way, n in got.items()
+                       if way != "eager") or any(
+                        got["eager"][k] > n or (n == 0 and got["eager"][k])
+                        for k, n in want.items()):
+                    raise AssertionError(f"lockstep: {label} launches "
+                                         f"{got}, expected {want}")
+                del out, ref, result
+    finally:
+        integ._SampleGraph.__init__ = real_init
+        graphs.release_graphs()
+
+
 def display_rmse(a, b) -> float:
     return float(((a - b) ** 2).mean().sqrt())
 
@@ -714,12 +897,36 @@ def check_progressive_and_cli(integ, scene, meta, cam):
 
 GRAD_SIZE, GRAD_SPP, GRAD_DEPTH = 128, 2, 8
 ADAM_LR = 0.02
+# a graph gradient column against the eager one, over the column's largest
+# magnitude: the backward's atomic accumulations (index_put_ with
+# accumulate) add in another order from run to run
+GRAD_GRAPH_TOL = 1e-5
+
+
+def grad_column_errors(grads, ref) -> dict:
+    """Each gradient column's largest difference from ``ref``'s over that
+    column's largest magnitude in ``ref``, over the values ``ref`` has
+    finite; infinite where the two have their non-finite values in
+    different places."""
+    out = {}
+    for k, g in ref.items():
+        fin = torch.isfinite(g)
+        if not torch.equal(fin, torch.isfinite(grads[k])):
+            out[k] = float("inf")
+            continue
+        diff = (grads[k] - g).abs()[fin]
+        out[k] = (float(diff.max()) / max(float(g.abs()[fin].max()), 1e-30)
+                  if diff.numel() else 0.0)
+    return out
 
 
 def check_train(integ, cuda_trace, scene_at, dev):
     """The train phase: grad_step (fast and precise), adam, grad_parity.
     Returns the grad step's launches, fast and precise."""
     from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.profile_step import (TRAVERSAL_KERNELS,
+                                                   profile_steps)
+    from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
 
     size = GRAD_SIZE
@@ -728,22 +935,52 @@ def check_train(integ, cuda_trace, scene_at, dev):
                              max_depth=GRAD_DEPTH)
     zero = torch.zeros((size * size, 3), device=dev)
     params = parallel.extract_params(scene)
+    # other values of every column: a graph that baked the first call's
+    # parameters in would give the first call's loss again
+    other = {k: v * 0.9 + 0.05 for k, v in params.items()}
     n_values = sum(v.numel() for v in params.values())
     grad_launches = {}
-    for names, other in ((FAST, PRECISE), (PRECISE, FAST)):
+    for names, other_kernels in ((FAST, PRECISE), (PRECISE, FAST)):
         c = dataclasses.replace(cfg, precise=names == PRECISE)
         want = {names[0]: c.spp * (1 + c.max_depth),
                 names[1]: c.spp * c.max_depth,
-                **{k: 0 for k in (*other, *V1)}}
+                **{k: 0 for k in (*other_kernels, *V1)}}
 
-        def step():
-            loss, grads = parallel.loss_and_grads(params, scene, meta, cam,
-                                                  c, zero)
-            return float(loss), grads
+        def eager(p):
+            return parallel._loss_and_grads(p, scene, meta, cam, c, zero,
+                                            None, dev, graphed=False)
 
-        t0 = time.perf_counter()
-        step()
-        first_s = time.perf_counter() - t0
+        def graph(p):
+            return parallel.loss_and_grads(p, scene, meta, cam, c, zero)
+
+        parallel.release_graphs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_alloc = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        runs = {}
+        # eager, the first graph call (warm-up and capture), a replay, and
+        # both ways again with other parameter values
+        for label, fn, p in (("eager", eager, params),
+                             ("graph_first", graph, params),
+                             ("graph", graph, params),
+                             ("eager_other", eager, other),
+                             ("graph_other", graph, other)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_trace.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, grads = fn(p)
+            torch.cuda.synchronize()
+            runs[label] = dict(
+                s=time.perf_counter() - t0, loss=float(loss), grads=grads,
+                peak=torch.cuda.max_memory_allocated(),
+                launches={k: cuda_trace.LAUNCHES[k] for k in want},
+                finite=sum(int(torch.isfinite(g).sum())
+                           for g in grads.values()))
+            del loss, grads
+        held = dict(allocated=torch.cuda.memory_allocated() - base_alloc,
+                    reserved=torch.cuda.memory_reserved() - base_reserved)
         # the forward alone, without autograd
         px = integ._pixel_grid(size, size, dev)
         cuda_trace.reset_launch_counts()
@@ -753,27 +990,75 @@ def check_train(integ, cuda_trace, scene_at, dev):
                                    px)
         torch.cuda.synchronize()
         forward = {k: cuda_trace.LAUNCHES[k] for k in want}
-        torch.cuda.reset_peak_memory_stats()
-        cuda_trace.reset_launch_counts()
-        t0 = time.perf_counter()
-        loss, grads = step()
+        # one replay under the profiler: its kernels and device time
+        replay = profile_steps(lambda: graph(params), 1, dev)
+        recorded = dict(graphs.kept("grad").launches)
+        traced = sum(replay["kernels"][k] for k in TRAVERSAL_KERNELS)
+        errs = {label: grad_column_errors(runs[label]["grads"],
+                                          runs[ref]["grads"])
+                for label, ref in (("graph_first", "eager"),
+                                   ("graph", "eager"),
+                                   ("graph_other", "eager_other"))}
+        # the memory in use after release, with what this phase made since
+        # the base reading dropped
+        for r in runs.values():
+            del r["grads"]
+        del px
+        parallel.release_graphs()
         torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        launches = {k: cuda_trace.LAUNCHES[k] for k in want}
-        finite = sum(int(torch.isfinite(g).sum()) for g in grads.values())
+        released = torch.cuda.memory_allocated() - base_alloc
         emit("train", sub="grad_step", scene=17, width=size, height=size,
              spp=c.spp, max_depth=c.max_depth, precise=bool(c.precise),
-             step_s=step_s, first_call_extra_s=first_s - step_s, loss=loss,
-             finite_grad_values=finite, grad_values=n_values,
-             peak_mem_bytes=torch.cuda.max_memory_allocated(),
-             launches=launches, forward_launches=forward)
-        if launches != want or forward != want:
-            raise AssertionError(f"grad_step: launches {launches}, forward "
-                                 f"alone {forward}, expected {want}")
-        if finite != n_values or not loss > 0.0:
-            raise AssertionError(f"grad_step: {n_values - finite} gradient "
-                                 f"values not finite, loss {loss}")
-        grad_launches[bool(c.precise)] = launches
+             step_s=runs["graph"]["s"], eager_step_s=runs["eager"]["s"],
+             first_call_s=runs["graph_first"]["s"],
+             first_call_extra_s=runs["graph_first"]["s"] - runs["graph"]["s"],
+             other_params_s=dict(graph=runs["graph_other"]["s"],
+                                 eager=runs["eager_other"]["s"]),
+             loss={k: r["loss"] for k, r in runs.items()},
+             grad_err_over_column_max=errs,
+             finite_grad_values={k: r["finite"] for k, r in runs.items()},
+             grad_values=n_values,
+             peak_mem_bytes={k: r["peak"] for k, r in runs.items()},
+             held_between_calls_bytes=held,
+             allocated_after_release_bytes=released,
+             launches={k: r["launches"] for k, r in runs.items()},
+             forward_launches=forward,
+             replay=dict((k, replay[k]) for k in (
+                 "step_ms", "profiled_step_ms", "device_ms", "busy_share",
+                 "launches", "kernels")),
+             replay_recorded_launches=recorded,
+             top_kernels_replayed=replay["top_kernels"][:6])
+        bad = [k for k, r in runs.items() if r["launches"] != want]
+        if bad or forward != want:
+            raise AssertionError(f"grad_step: launches of {bad} or the "
+                                 f"forward alone {forward} differ from "
+                                 f"{want}")
+        # the rung's own parameters: every value finite (the other values
+        # are held to the eager program's, non-finite values included)
+        if any(runs[k]["finite"] != n_values
+               for k in ("eager", "graph_first", "graph")) \
+                or not runs["eager"]["loss"] > 0.0:
+            raise AssertionError("grad_step: a gradient value is not "
+                                 "finite or the loss is 0")
+        for label, ref in (("graph_first", "eager"), ("graph", "eager"),
+                           ("graph_other", "eager_other")):
+            if runs[label]["loss"] != runs[ref]["loss"] \
+                    or max(errs[label].values()) > GRAD_GRAPH_TOL:
+                raise AssertionError(
+                    f"grad_step: {label} differs from {ref}: loss "
+                    f"{runs[label]['loss']} vs {runs[ref]['loss']}, "
+                    f"gradients {errs[label]}")
+        if runs["graph_other"]["loss"] == runs["graph"]["loss"]:
+            raise AssertionError("grad_step: other parameters gave the "
+                                 "same loss")
+        if recorded != {k: v for k, v in want.items() if v} \
+                or traced != sum(want.values()):
+            raise AssertionError(f"grad_step: a replay recorded {recorded}, "
+                                 f"its trace {traced} traversal kernels")
+        if released > 0:
+            raise AssertionError(f"grad_step: {released} bytes still in use "
+                                 "after release_graphs()")
+        grad_launches[bool(c.precise)] = runs["graph"]["launches"]
 
     # ---- adam: fit the dragon's colours back to the render as built -------
     # NEE at one bounce, where the loss is a smooth function of every
@@ -850,6 +1135,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
             raise AssertionError(f"grad_parity: card vs CPU differ "
                                  f"(precise={precise}): loss {l_gpu} vs "
                                  f"{l_cpu}, gradients {rel}")
+    parallel.release_graphs()
     return grad_launches
 
 
@@ -1286,6 +1572,9 @@ def main() -> int:
 
     # ---- graph: the captured step against the eager step loop ----------------
     check_graph(integ, cuda_trace, scene, meta, cam, cfg)
+
+    # ---- lockstep: the captured lockstep sample against its eager loop ------
+    check_lockstep(integ, cuda_trace, scene, meta, cam, cfg)
 
     # ---- render: the fast and the precise main paths --------------------------
     helpers = (integ, cuda_trace, tm_mod, eotf_mod)

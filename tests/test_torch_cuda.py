@@ -359,3 +359,172 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
     assert torch.cuda.max_memory_allocated() <= first
     assert torch.cuda.memory_allocated() == in_use
     assert torch.equal(again, film)
+
+
+def _grad_case(dev, precise):
+    """Scene 17 at the graph test's size, 2 spp, depth 6: the scene, its
+    config, an all-zero target, the parameters, other values of every
+    column, and the two kernels a call launches."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render.integrator import RenderConfig
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    s, m, c = load_scene(17, 64, 48, table_res=16, device=dev)
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=6,
+                       precise=precise)
+    params = parallel.extract_params(s)
+    other = {k: v * 0.9 + 0.05 for k, v in params.items()}
+    names = (("closest_hit_precise", "any_hit_precise") if precise
+             else ("closest_hit", "any_hit"))
+    return (s, m, c), cfg, torch.zeros(64 * 48, 3, device=dev), params, \
+        other, names
+
+
+def _launched(fn, names):
+    cuda_trace.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [cuda_trace.LAUNCHES[k] for k in names]
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
+def test_grad_graph_equals_eager(dev, precise):
+    """``loss_and_grads`` on the card captures its forward and backward as
+    one CUDA graph on the first call (its warm-up is that call's result)
+    and replays it after: each call's loss equals the eager program's bit
+    for bit and each gradient column lies within 1e-5 of the eager
+    column's largest magnitude (the backward accumulates with atomics, so
+    two eager calls may differ in the last bits); the launches are exact
+    both ways; a call with other parameter values gives that call's eager
+    values, from the same graph (non-finite gradient values, which those
+    values give, in the same places)."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render import graphs
+
+    (s, m, c), cfg, zero, params, other, names = _grad_case(dev, precise)
+    want = [cfg.spp * (1 + cfg.max_depth), cfg.spp * cfg.max_depth]
+    parallel.release_graphs()
+    losses, graph = [], None
+    for p in (params, params, other):
+        (l_e, g_e), n_e = _launched(lambda: parallel._loss_and_grads(
+            p, s, m, c, cfg, zero, None, dev, graphed=False), names)
+        (l_g, g_g), n_g = _launched(lambda: parallel.loss_and_grads(
+            p, s, m, c, cfg, zero, device=dev), names)
+        assert n_e == n_g == want
+        assert graph is None or graphs.kept("grad") is graph
+        graph = graphs.kept("grad")
+        assert torch.equal(l_g, l_e) and float(l_g) > 0
+        for k, g in g_e.items():
+            fin = torch.isfinite(g)
+            assert torch.equal(torch.isfinite(g_g[k]), fin), k
+            assert p is other or fin.all(), k
+            err = float((g_g[k] - g).abs()[fin].max())
+            assert err <= 1e-5 * float(g.abs()[fin].max()), (k, err)
+        losses.append(float(l_g))
+    assert losses[0] == losses[1] != losses[2]
+    parallel.release_graphs()
+
+
+def test_grad_graph_cache_and_release(dev):
+    """The kept graph: the same configuration is a hit (other parameter
+    values too), another ``cfg`` a new capture; ``release_graphs()``
+    returns the memory in use to its level before the first call."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render import graphs
+
+    (s, m, c), cfg, zero, params, other, _ = _grad_case(dev, False)
+    parallel.release_graphs()
+    # the eager program builds the per-device tables first
+    parallel._loss_and_grads(params, s, m, c, cfg, zero, None, dev,
+                             graphed=False)
+    torch.cuda.synchronize()
+    in_use = torch.cuda.memory_allocated()
+    parallel.loss_and_grads(params, s, m, c, cfg, zero, device=dev)
+    first = graphs.kept("grad")
+    parallel.loss_and_grads(params, s, m, c, cfg, zero, device=dev)
+    parallel.loss_and_grads(other, s, m, c, cfg, zero, device=dev)
+    assert graphs.kept("grad") is first
+    parallel.loss_and_grads(params, s, m, c,
+                            dataclasses.replace(cfg, max_depth=5), zero,
+                            device=dev)
+    assert graphs.kept("grad") is not first
+    del first
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() > in_use      # the graph's buffers
+    parallel.release_graphs()
+    torch.cuda.synchronize()
+    assert graphs.kept("grad") is None
+    assert torch.cuda.memory_allocated() == in_use
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
+def test_lockstep_graphs_equal_eager(dev, precise, monkeypatch):
+    """The lockstep renders, called as a user calls them, replay one
+    captured sample per lane count: scene 17 at 64x40 in tiles of 1,024
+    lanes (the last tile of the sharded film 512 lanes, the ray count's
+    padded rows 512).  The AOVs' films (``render_accum``),
+    ``render_sharded``'s image and ``count_rays_one_spp`` equal the eager
+    loops' bit for bit; the first call captures once per lane count, a
+    second call of the same configuration replays the kept graphs and
+    captures nothing; the graph launches each kernel once per (tile,
+    sample, bounce), the eager loop, which stops early, no more;
+    ``release_graphs()`` returns the memory in use to its level before
+    the first call."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render import graphs
+    from tpu_pathtracer_torch.render import integrator as tint
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    s, m, c = load_scene(17, 64, 40, table_res=16, device=dev)
+    cfg = tint.RenderConfig(width=64, height=40, spp=2, max_depth=6,
+                            precise=precise, tile_rays=1024)
+    names = (("closest_hit_precise", "any_hit_precise") if precise
+             else ("closest_hit", "any_hit"))
+    depth = cfg.max_depth
+    captures = []
+    real_init = tint._SampleGraph.__init__
+
+    def counted_init(self, scene, meta, camera, cfg, sampler, px, *rest):
+        captures.append(px.shape[0])
+        real_init(self, scene, meta, camera, cfg, sampler, px, *rest)
+    monkeypatch.setattr(tint._SampleGraph, "__init__", counted_init)
+
+    def aov(strategy):
+        a = dataclasses.replace(cfg, strategy=strategy)
+        return lambda g: (tint.render_accum(s, m, c, a) if g else
+                          tint._aov_film(s, m, c, a, 0, None, None, False))
+
+    runs = [(f"aov_{a}", aov(a), [3 * 2, 0], [1024])
+            for a in ("albedo", "normal")]
+    runs.append(("sharded", lambda g: (
+        parallel.render_sharded(s, m, c, cfg, device=dev) if g else
+        parallel._render_sharded(s, m, c, cfg, None, dev, graphed=False)),
+        [3 * 2 * (1 + depth), 3 * 2 * depth], [1024, 512]))
+    runs.append(("count", lambda g: (
+        tint.count_rays_one_spp(s, m, c, cfg) if g else
+        tint._count_rays(s, m, c, cfg, False)),
+        [4 * (1 + depth), 4 * depth], [1024, 512]))
+    for label, run, want, lanes in runs:
+        eager, n_e = _launched(lambda: run(False), names)
+        graphs.release_graphs()
+        torch.cuda.synchronize()
+        in_use = torch.cuda.memory_allocated()
+        captures.clear()
+        graph, n_g = _launched(lambda: run(True), names)
+        assert captures == lanes, label
+        captures.clear()
+        again, n_a = _launched(lambda: run(True), names)
+        assert captures == [], label
+        assert n_g == n_a == want, label
+        assert all(e <= g for e, g in zip(n_e, n_g)), label
+        if label == "count":
+            assert graph == again == eager
+        else:
+            assert torch.equal(graph, eager), label
+            assert torch.equal(again, eager), label
+        del graph, again
+        graphs.release_graphs()
+        torch.cuda.synchronize()
+        assert graphs.kept("lockstep") is None
+        assert torch.cuda.memory_allocated() == in_use, label
+        del eager

@@ -26,6 +26,16 @@ and for the graph its ``capture_s`` (the first step run eagerly, the
 capture and the instantiation) and ``recorded_launches`` (the wrappers'
 launches counted while capturing, added to ``cuda_trace.LAUNCHES`` on each
 replay).
+
+``--grad`` profiles a step of the differentiable pass instead: one
+``loss_and_grads`` call on bench.py's grad rung (scene N at 128x128, 2
+spp, depth 8, MIS + Z-Sobol, an all-zero target), GRAD_STEPS calls each
+way after a warm-up: ``eager`` (the eager program, forward and backward),
+``forward`` (its forward alone with autograd recording, and the loss: the
+rest of a step is the backward) and, on a CUDA device, ``graph`` (calls
+replayed from the captured program, as ``loss_and_grads`` runs on a card,
+with ``first_call_s``, the warm-up and capture).  ``backward_share`` is
+1 - forward / eager of the step ms and of the device ms.
 """
 from __future__ import annotations
 
@@ -38,6 +48,9 @@ import torch
 
 WARMUP = 6
 STEPS = 4
+GRAD_STEPS = 2
+# bench.py's grad rung
+GRAD_SIZE, GRAD_SPP, GRAD_DEPTH = 128, 2, 8
 # the traversal kernels of csrc/trace_kernels.cu, by their names in a trace
 TRAVERSAL_KERNELS = ("team_kernel", "binary_any_hit_kernel")
 
@@ -99,14 +112,78 @@ def profile_steps(run_step, n: int, dev, ranges=()) -> dict:
                           calls=e.count / n) for e in top])
 
 
+def profile_grad(scene_n: int, size: int, precise: bool, dev,
+                 ranges) -> dict:
+    """The ``--grad`` profile of the module docstring (``size``: the
+    film's width and height)."""
+    from . import parallel
+    from .render import graphs
+    from .render import integrator as integ
+    from .scenes import load_scene
+
+    scene, meta, cam = load_scene(scene_n, size, size, table_res=64,
+                                  device=dev)
+    cfg = integ.RenderConfig(width=size, height=size, spp=GRAD_SPP,
+                             max_depth=GRAD_DEPTH, precise=precise,
+                             early_exit=False)
+    target = torch.zeros((size * size, 3), device=dev)
+    params = parallel.extract_params(scene)
+    px = integ._pixel_grid(size, size, dev)
+
+    def eager():
+        parallel._loss_and_grads(params, scene, meta, cam, cfg, target,
+                                 None, dev, graphed=False)
+
+    def forward():
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            rgb = parallel._accum_linear(parallel.merge_params(scene, p),
+                                         meta, cam, cfg, px)
+            ((rgb - target) ** 2).sum()
+
+    out = dict(device=(torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+               scene=scene_n, grad=True, lanes=size * size, spp=GRAD_SPP,
+               max_depth=GRAD_DEPTH, steps=GRAD_STEPS, precise=precise)
+    for label, fn in (("eager", eager), ("forward", forward)):
+        fn()
+        out[label] = profile_steps(fn, GRAD_STEPS, dev, ranges=ranges)
+    if dev.type == "cuda":
+        def graph():
+            parallel.loss_and_grads(params, scene, meta, cam, cfg, target)
+        parallel.release_graphs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        try:
+            out["graph"] = dict(profile_steps(graph, GRAD_STEPS, dev),
+                                first_call_s=first_s,
+                                recorded_launches=dict(
+                                    graphs.kept("grad").launches))
+        finally:
+            parallel.release_graphs()
+    out["backward_share"] = {
+        k: 1.0 - out["forward"][k] / out["eager"][k] if out["eager"][k]
+        else None for k in ("step_ms", "device_ms")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", type=int, default=17, help="scene number")
-    ap.add_argument("--size", type=int, default=1024, help="film width = height")
+    ap.add_argument("--size", type=int, default=None,
+                    help="film width = height (default 1024; with --grad "
+                         f"{GRAD_SIZE})")
     ap.add_argument("--device", default=None,
-                    help="default: the GPU; 'cpu' rehearses on the plain versions")
+                    help="default: the GPU; 'cpu' rehearses on the plain "
+                         "versions")
     ap.add_argument("--precise", action="store_true",
                     help="profile the watertight path (K3 and K2p)")
+    ap.add_argument("--grad", action="store_true",
+                    help="profile a step of the differentiable pass "
+                         "(bench.py's grad rung) instead")
     args = ap.parse_args()
     from .ops import trace
     from .render import bsdf, film, integrator as integ, lights, surface
@@ -117,13 +194,6 @@ def main() -> int:
     from .spectrum import grid
 
     dev = resolve_device(args.device)
-    W = H = args.size
-    scene, meta, cam = load_scene(args.scene, W, H, table_res=64, device=dev)
-    cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16,
-                             precise=args.precise)
-    tile = integ.tile_lanes(cfg)
-    px = integ._pixel_grid(W, H, dev)[:tile]
-
     labels = {
         (trace, "intersect_scene"): "trace.intersect_scene (K1 / K3)",
         (trace, "intersect_p_scene"): "trace.intersect_p_scene (K2 / K2p)",
@@ -141,7 +211,18 @@ def main() -> int:
     real = {key: _wrap(*key, label) for key, label in labels.items()}
     # the integrator and lights imported these names directly
     integ.make_interaction = surface.make_interaction
+    if args.grad:
+        print(json.dumps(profile_grad(args.scene, args.size or GRAD_SIZE,
+                                      args.precise, dev,
+                                      set(labels.values()))))
+        return 0
 
+    W = H = args.size or 1024
+    scene, meta, cam = load_scene(args.scene, W, H, table_res=64, device=dev)
+    cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16,
+                             precise=args.precise)
+    tile = integ.tile_lanes(cfg)
+    px = integ._pixel_grid(W, H, dev)[:tile]
     sampler = make_sampler("sobol", cfg.seed, cfg.spp, (W, H))
     table = integ._spectral_table(scene)
     accum0 = torch.zeros((tile, 3), device=dev)

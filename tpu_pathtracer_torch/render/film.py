@@ -27,7 +27,14 @@ def _cmf_stack() -> np.ndarray:
 
 
 def cmf_table(device) -> torch.Tensor:
-    """(470, 3) CIE x/y/z CMFs as float32 on ``device``."""
+    """(470, 3) CIE x/y/z CMFs as float32 on ``device``: one tensor per
+    device, copied there once (a lockstep sample asks for it, and a
+    captured sample copies nothing from the host)."""
+    return _cmf_on(torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def _cmf_on(device: torch.device) -> torch.Tensor:
     return torch.tensor(_cmf_stack(), device=device)
 
 

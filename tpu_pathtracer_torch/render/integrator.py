@@ -28,6 +28,16 @@ inside one.  On the CPU, which has no graphs, the steps run as eager ops
 Steps after a tile is done change nothing (no lane regenerates, traces or
 finalizes), so both give the same film, rays and steps.
 
+The lockstep programs of the JAX package (``_accum_chunk``,
+``_count_tile_jit``) are, on a CUDA device, replays of one lockstep
+sample captured as a CUDA graph (``_SampleGraph``, per lane count of a
+configuration: ``_SampleGraphs``, kept from call to call by ``graphs``),
+its sample index a 0-d tensor.  The graph runs
+every ``max_depth`` bounce where the eager loop stops once every lane is
+dead (a host read per bounce); a bounce that no lane entered alive adds
+nothing and keeps the wavelengths as they were, so the film and rays are
+the same (``trace_sample``'s ``host_exit``).
+
 Strategy bookkeeping: pt counts every emissive hit; nee counts emissive
 hits only after specular bounces (the camera ray counts as one) and adds
 unweighted NEE; mis weights both by the balance heuristic.  A ray that
@@ -45,7 +55,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_trace, trace
-from ..scene.types import check_ported
+from ..scene.types import check_ported, tensors_of
 from ..spectrum import grid as sgrid
 from ..spectrum import sampled as swl
 from ..utils.vec import (S4, V3, dot3, from_frame, make_frame, sel, smap,
@@ -53,6 +63,7 @@ from ..utils.vec import (S4, V3, dot3, from_frame, make_frame, sel, smap,
 from . import bsdf as bsdf_mod
 from . import env as env_mod
 from . import film as film_mod
+from . import graphs as graphs_mod
 from . import lights as lights_mod
 from .sampler import make_sampler
 from .surface import make_interaction
@@ -79,8 +90,9 @@ class RenderConfig:
     gamut: str = "srgb"
     tile_rays: int = 1 << 18       # lanes per wavefront tile
     # trace_sample stops bouncing once every lane is dead, a host read per
-    # bounce; False runs all max_depth bounces (the differentiable pass).
-    # The wavefront ignores it
+    # bounce (its captured form reads nothing: trace_sample's host_exit);
+    # False runs all max_depth bounces (the differentiable pass).  The
+    # wavefront ignores it
     early_exit: bool = True
     # watertight (Dekker-compensated shear) hit test for every traced ray;
     # None means False
@@ -181,12 +193,19 @@ def _v3_stack(v: V3):
 
 
 def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
-                 sample_idx, with_ray_count: bool = False):
+                 sample_idx, with_ray_count: bool = False,
+                 host_exit: bool = True):
     """Trace one spectral sample for every pixel in lockstep -> rgb (R, 3).
 
     The albedo and normal strategies return their AOV at the first hit.
     with_ray_count: also return the number of rays traced (camera +
-    continuation + NEE shadow rays), an int64 scalar tensor."""
+    continuation + NEE shadow rays), an int64 scalar tensor.
+    With ``cfg.early_exit`` the bounce loop stops once every lane is dead,
+    by a host read per bounce; ``host_exit=False`` (the form a CUDA graph
+    captures) runs every bounce instead and keeps the wavelengths of a
+    bounce that no lane entered alive (a dead lane's dispersive glass hit
+    would collapse them), the one state of such a bounce that reaches the
+    film: the film and rays are the early-exit loop's."""
     r = pixel_xy.shape[0]
     dev = pixel_xy.device
     strategy = cfg.strategy
@@ -231,7 +250,7 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
     n_rays = torch.full((), r, dtype=torch.int64, device=dev)
 
     depth = 0
-    while depth < cfg.max_depth and (not cfg.early_exit
+    while depth < cfg.max_depth and (not cfg.early_exit or not host_exit
                                      or bool(alive.any())):
         base = 3 + DIMS_PER_BOUNCE * depth
         frame = make_frame(it.shading_n, it.tangent)
@@ -243,7 +262,10 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
         uc3 = sampler.get_1d(pixel_xy, sample_idx, base + 4)
         ms = bsdf_mod.sample_material(scene, meta, it, frame, wo_t, uc, uv2,
                                       wl, uc2=uc2, uc3=uc3)
-        wl = ms.wl
+        if cfg.early_exit and not host_exit:
+            wl = wl._replace(pdf=sel(alive.any(), ms.wl.pdf, wl.pdf))
+        else:
+            wl = ms.wl
 
         # NEE at non-specular vertices
         if strategy in ("nee", "mis"):
@@ -322,12 +344,141 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
 
 
 def _accum_chunk(scene, meta, camera, cfg, sampler, chunk_spp, px_tile,
-                 spp_base, accum):
-    """accum + the linear-RGB estimates of chunk_spp samples of one tile."""
+                 spp_base, accum, graphs=None):
+    """accum + the linear-RGB estimates of chunk_spp samples of one tile:
+    eager ops, or with ``graphs`` (the kept ``_SampleGraphs``, on a CUDA
+    device) replays of the captured sample."""
+    if graphs is not None:
+        return graphs.accumulate(px_tile,
+                                 range(spp_base, spp_base + chunk_spp),
+                                 accum)
     for i in range(chunk_spp):
         accum = accum + trace_sample(scene, meta, camera, cfg, sampler,
                                      px_tile, spp_base + i)
     return accum
+
+
+class _SampleGraph:
+    """One lockstep sample (``trace_sample`` with ``host_exit=False``)
+    captured as a CUDA graph.
+
+    It reads its static buffers -- the tile's pixels ``px`` and the sample
+    index ``sample``, a 0-d int64 tensor, the one value that changes from
+    replay to replay -- and its last ops add the sample's rgb into the
+    tile's film ``film`` and (pt, nee, mis) its traced rays into
+    ``n_rays``.  Built on the first (tile, sample) it serves: that sample
+    runs eagerly on a side stream (the warm-up: it builds the kernels and
+    the per-device tables; its result is kept and its launches count as
+    any sample's), then the sample is captured.  The capture launches
+    nothing; each replay adds the wrappers' counts of the capture to
+    ``cuda_trace.LAUNCHES``.  ``release`` frees the graph and its memory
+    pool."""
+
+    def __init__(self, scene, meta, camera, cfg, sampler, px, sample_idx,
+                 accum):
+        dev = px.device
+        counted = cfg.strategy in PATH_STRATEGIES
+        with torch.no_grad(), torch.cuda.device(dev):
+            self.px = px.clone()
+            self.sample = torch.full((), sample_idx, dtype=torch.int64,
+                                     device=dev)
+            self.film = accum.clone()
+            self.n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+
+            def sample():
+                out = trace_sample(scene, meta, camera, cfg, sampler,
+                                   self.px, self.sample,
+                                   with_ray_count=counted, host_exit=False)
+                if counted:
+                    out, n = out
+                    self.n_rays.add_(n)
+                self.film.add_(out)
+
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                sample()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with cuda_trace.captured_launches() as self.launches:
+                with torch.cuda.graph(self.graph):
+                    sample()
+
+    def load(self, px, accum) -> None:
+        """The next tile: its pixels and film; the ray count starts at 0."""
+        self.px.copy_(px)
+        self.film.copy_(accum)
+        self.n_rays.zero_()
+
+    def replay(self, sample_idx: int) -> None:
+        self.sample.fill_(sample_idx)
+        self.graph.replay()
+        cuda_trace.LAUNCHES.update(self.launches)
+
+    def release(self) -> None:
+        self.graph.reset()
+        self.px = self.sample = self.film = self.n_rays = None
+
+
+class _SampleGraphs:
+    """The captured lockstep samples of one configuration: a copy of the
+    scene's tensors, the sampler, and one ``_SampleGraph`` per lane count
+    (a call's last or padded tile may be shorter), each captured on the
+    first tile of its count.  Kept from call to call in the "lockstep"
+    slot of ``graphs`` (``_sample_graphs``); each call copies its scene's
+    values in.  ``release`` frees the graphs and the copy."""
+
+    def __init__(self, scene, meta, camera, cfg):
+        with torch.no_grad():
+            self.scene = scene.map(torch.clone)
+        self.args = (meta, camera, cfg, make_sampler(
+            cfg.sampler, cfg.seed, cfg.spp, (cfg.width, cfg.height)))
+        self.by_lanes = {}
+
+    def load_scene(self, scene) -> None:
+        with torch.no_grad():
+            for dst, src in zip(tensors_of(self.scene), tensors_of(scene)):
+                dst.copy_(src)
+
+    def _run(self, px, samples, accum) -> _SampleGraph:
+        samples = list(samples)
+        graph = self.by_lanes.get(px.shape[0])
+        if graph is None:
+            meta, camera, cfg, sampler = self.args
+            graph = self.by_lanes[px.shape[0]] = _SampleGraph(
+                self.scene, meta, camera, cfg, sampler, px, samples.pop(0),
+                accum)
+        else:
+            graph.load(px, accum)
+        for s in samples:
+            graph.replay(s)
+        return graph
+
+    def accumulate(self, px, samples, accum):
+        """accum + the rgb of ``samples`` of the tile ``px`` -> (R, 3)."""
+        return self._run(px, samples, accum).film.clone()
+
+    def count(self, px, sample_idx: int):
+        """The rays traced by one sample of the tile ``px`` -> 0-d int64."""
+        zero = torch.zeros((px.shape[0], 3), device=px.device)
+        return self._run(px, [sample_idx], zero).n_rays.clone()
+
+    def release(self) -> None:
+        for graph in self.by_lanes.values():
+            graph.release()
+        self.by_lanes.clear()
+        self.scene = None
+
+
+def _sample_graphs(scene, meta, camera, cfg) -> _SampleGraphs:
+    """The kept lockstep samples of this configuration (captured anew, the
+    ones kept before released, for another), with ``scene``'s values
+    copied in."""
+    key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene))
+    kept = graphs_mod.keep("lockstep", key, lambda: _SampleGraphs(
+        scene, meta, camera, cfg))
+    kept.load_scene(scene)
+    return kept
 
 
 def _wavefront_init(r: int, spp_start: int, accum):
@@ -688,7 +839,10 @@ def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,
 
     pt, nee and mis go through the regenerative wavefront (the identical
     film at fewer traced lanes); the AOVs through ``trace_sample``, one
-    (tile, sample chunk) at a time.  ``with_stats`` needs a path strategy."""
+    (tile, sample chunk) at a time, on a CUDA device as replays of the
+    captured sample, which is kept for the next call of the same
+    configuration (``graphs.release_graphs`` frees it).  ``with_stats``
+    needs a path strategy."""
     if cfg.strategy in PATH_STRATEGIES:
         return render_wavefront(scene, meta, camera, cfg, spp_start=spp_start,
                                 spp_end=spp_end, accum_init=accum_init,
@@ -697,6 +851,16 @@ def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,
     check_ported(meta)
     if with_stats:
         raise ValueError("ray statistics are kept for pt, nee and mis only")
+    return _aov_film(scene, meta, camera, cfg, spp_start, spp_end,
+                     accum_init, graphed=scene.device.type == "cuda")
+
+
+def _aov_film(scene, meta, camera, cfg, spp_start, spp_end, accum_init,
+              graphed: bool):
+    """``render_accum``'s lockstep loop over (sample chunk, tile): each
+    chunk replays the captured sample (``graphed``, on a CUDA device) or
+    runs as eager ops (the CPU, and the graph's plain version on the
+    card)."""
     dev = scene.device
     spp_end = cfg.spp if spp_end is None else spp_end
     n_px = cfg.width * cfg.height
@@ -706,12 +870,13 @@ def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,
     accums = [ai[k * tile:(k + 1) * tile] for k in range(n_tiles)]
     sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
                            (cfg.width, cfg.height))
+    graphs = _sample_graphs(scene, meta, camera, cfg) if graphed else None
     for s0 in range(spp_start, spp_end, chunk_spp):
         n_s = min(chunk_spp, spp_end - s0)
         for k in range(n_tiles):
+            px = pixel_xy[k * tile:(k + 1) * tile]
             accums[k] = _accum_chunk(scene, meta, camera, cfg, sampler, n_s,
-                                     pixel_xy[k * tile:(k + 1) * tile], s0,
-                                     accums[k])
+                                     px, s0, accums[k], graphs)
     return torch.cat(accums, 0)[:n_px]
 
 
@@ -737,22 +902,34 @@ def render(scene, meta, camera, cfg: RenderConfig, device=None,
 def count_rays_one_spp(scene, meta, camera, cfg: RenderConfig) -> int:
     """Rays traced for sample 0 of every pixel (camera + continuation +
     NEE shadow rays), through ``trace_sample`` with the render's tiling;
-    padded rows (copies of pixel 0) are counted out."""
+    padded rows (copies of pixel 0) are counted out.  On a CUDA device
+    each tile replays the captured sample (kept as ``render_accum``
+    keeps it); the count is read once."""
     _check_config(cfg)
     check_ported(meta)
+    return _count_rays(scene, meta, camera, cfg,
+                       graphed=scene.device.type == "cuda")
+
+
+def _count_rays(scene, meta, camera, cfg, graphed: bool) -> int:
+    """``count_rays_one_spp`` through the captured sample (``graphed``) or
+    eager ops (the CPU, and the graph's plain version on the card)."""
     dev = scene.device
     n_px = cfg.width * cfg.height
     tile, _ = render_plan(cfg)
     pixel_xy, n_tiles = _padded_pixels(cfg, dev)
     sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
                            (cfg.width, cfg.height))
+    graphs = _sample_graphs(scene, meta, camera, cfg) if graphed else None
 
     def count(px):
-        return int(trace_sample(scene, meta, camera, cfg, sampler, px, 0,
-                                with_ray_count=True)[1])
+        if graphs is not None:
+            return graphs.count(px, 0)
+        return trace_sample(scene, meta, camera, cfg, sampler, px, 0,
+                            with_ray_count=True)[1]
 
     total = sum(count(pixel_xy[k * tile:(k + 1) * tile])
                 for k in range(n_tiles))
     if len(pixel_xy) > n_px:
-        total -= count(pixel_xy[n_px:])
-    return total
+        total = total - count(pixel_xy[n_px:])
+    return int(total)

@@ -44,18 +44,37 @@ LIGHT_NAMES = {
 }
 
 
+def map_tensors(fn, x):
+    """``x`` -- a tensor, or tuples and dataclasses of them (a scene, its
+    tables, the BVH) -- with every tensor ``t`` replaced by ``fn(t)``, in
+    field order; anything else is kept as it is."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        return tuple(map_tensors(fn, v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: map_tensors(fn, getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def tensors_of(x) -> list:
+    """The tensors of ``x``, in ``map_tensors``'s order."""
+    out = []
+    map_tensors(lambda t: out.append(t) or t, x)
+    return out
+
+
 class _Tensors:
-    """``.to(device)`` over every tensor field, recursively."""
+    """``.map(fn)`` and ``.to(device)`` over every tensor field,
+    recursively."""
+
+    def map(self, fn):
+        return map_tensors(fn, self)
 
     def to(self, device):
-        def move(v):
-            # tensors, tables and the BVH all have .to(device)
-            if isinstance(v, tuple):
-                return tuple(move(x) for x in v)
-            return v.to(device) if hasattr(v, "to") else v
-        return dataclasses.replace(
-            self, **{f.name: move(getattr(self, f.name))
-                     for f in dataclasses.fields(self)})
+        return self.map(lambda t: t.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
