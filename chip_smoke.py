@@ -54,15 +54,24 @@ line per phase; any failed check raises and the script exits non-zero.
   graph    scene 17 at the main path's size, fast and precise:
            ``render_wavefront``'s tiles with their steps replayed from one
            captured CUDA graph against the eager step loop (its plain
-           version), in turns (eager, graph, graph, eager).  Gates: the
-           films equal bit for bit, the same rays and steps, each kernel
-           launched once a step both ways, and in a profiled replay the
+           version), in turns (eager, graph, graph, eager); the first
+           graph call starts from no kept graph, the second finds the
+           first call's kept.  Gates: the films equal bit for bit, the same
+           rays and steps, each kernel launched once a step both ways, one
+           capture in the first graph call and none in the kept one, the
+           memory in use back at its level before the first graph call
+           after ``release_graphs()``, and in a profiled replay the
            traversal kernels of the trace equal the launches the capture
            recorded.  Reports ms a step, Mray/s and peak device memory of
-           each way, the capture's seconds, and a steady step of each
-           (device ms, busy share, device ops; ``profile_step``).
-           Every render below runs through the graph, as ``render`` does
-           on a card.
+           each way, the capture's seconds, the memory allocated and
+           reserved before, with the kept graph and after its release,
+           and a steady step of each (device ms, busy share, device ops;
+           ``profile_step``).  Then ``kept_scene``: scene 17 at 256x256
+           rendered twice with the graph kept, the second time with the
+           dragon's coat tint moved and the scene a new object; its film
+           must equal the eager film of the changed scene and differ from
+           the first.  Every render below runs through the kept graph, as
+           ``render`` does on a card.
   lockstep scene 17 at the main path's size (4 tiles of 262,144 lanes),
            fast and precise: the lockstep renders called as a user calls
            them, each (tile, sample) replayed from one captured sample
@@ -86,10 +95,14 @@ line per phase; any failed check raises and the script exits non-zero.
            sample (a call with the kept graph over its samples).
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
-           timed 4 spp render.  Checks: K1 and K2 launch counts equal the
-           wavefront steps, the precise kernels are not launched, no
-           non-finite pixel, mean linear RGB > 0.
-  render_precise  the same render with ``precise=True``: K3 and K2p launch
+           timed 4 spp render (a first call of its configuration: it
+           captures its step once, gated) and a second timed call, which
+           replays the kept graph (``kept_ms``): no capture, the image,
+           rays, steps and launches of the first.  Checks: K1 and K2
+           launch counts equal the wavefront steps, the precise kernels
+           are not launched, no non-finite pixel, mean linear RGB > 0.
+  render_precise  the same render (and kept call) with ``precise=True``:
+           K3 and K2p launch
            counts equal the wavefront steps, K1 and K2 are not launched, no
            non-finite pixel, mean > 0, display RMSE against the fast render
            <= 0.01.
@@ -109,12 +122,30 @@ line per phase; any failed check raises and the script exits non-zero.
            <= 0.01); each kernel launched 1 + G times a step (G = 1 group).
   progressive  scene 7 at 256x256, 4 spp: ``render_progressive`` in chunks
            of 2, and resumed from the checkpoint of its first chunk, each
-           against the one-shot ``render`` (atol 2e-5, rtol 1e-4); then
+           against the one-shot ``render`` (atol 2e-5, rtol 1e-4), each
+           run from no kept graph capturing its step once; then
            ``python -m tpu_pathtracer_torch.cli --scene 7`` at 128x96, 4 spp
            as a subprocess, which must exit 0 and write its PNG.
   parity   scene 17 at 64x48, 2 spp, depth 6 on the card and on the CPU
            (plain versions), fast and precise; scenes 8 and 19 the same,
            fast, and scene 7 fast and precise: display RMSE <= 0.01 each.
+  consistency  the JAX package's independent checks of its integrators
+           (``tpu_pathtracer_torch.consistency``, the counterparts of
+           tests/test_consistency_matrix.py), at the reference's sizes,
+           seeds and gates, table_res 32, depth 8: pt vs nee vs mis on
+           scene 0 (Sobol and random) and scene 8 (Sobol, abs_floor 0.03)
+           at 48x36, 48 spp -- each pair's median-filtered RMSE over the
+           nee mean under 0.02 (0.03) + 2 x the noise of pt against pt
+           with seed 101, and the nee and mis means within 0.02 + 2 x
+           noise / 8; then the PT mean of the anchored scenes 3, 8 and
+           17 (64x48, 128 spp, Sobol, seed 7) within 0.08 + 2 x the
+           anchor's two-seed spread x sqrt(anchor spp / 128) of the
+           anchor (the port's copy, ``tpu_pathtracer_torch/data/
+           pt_mean_anchors.json``).  Each gate's value is printed beside
+           its limit; any miss fails the phase.  (The slow tier, the
+           ``cuda`` + ``slow`` tests of tests/test_torch_cuda.py: every
+           anchored scene with both samplers at 64x48, 64 spp, and the
+           anchors of scenes 6, 9 and 10.)
   train    the differentiable pass (``tpu_pathtracer_torch.parallel``).
            grad_step: bench.py's grad rung, ``loss_and_grads`` on scene
            17 at 128x128, 2 spp, depth 8, MIS + Z-Sobol against an
@@ -128,7 +159,8 @@ line per phase; any failed check raises and the script exits non-zero.
            equal to the eager loss of its parameters bit for bit, each
            gradient column within 1e-5 of the eager column's largest
            magnitude (the backward accumulates with atomics), the other
-           parameters' loss different; every gradient value finite; the
+           parameters' loss different; every gradient value finite, at
+           both sets of values; the
            launches of every call exact: K1 (K3 precise) 2 x (1 + 8) = 18
            times and K2 (K2p) 2 x 8 = 16 times, the other pair never; the
            forward alone (no autograd) launches the same, so the backward
@@ -149,8 +181,8 @@ line per phase; any failed check raises and the script exits non-zero.
            (``bit_exact`` says whether it is exact).
            grad_parity: scene 17 at 32x24, 1 spp, depth 3, fast and
            precise, ``loss_and_grads`` on the card against the CPU's plain
-           versions: loss within 1e-3 relative, each gradient column
-           within 1e-2 of its largest magnitude.  Adam and grad_parity run
+           versions: loss within 1e-3 relative, every gradient value
+           finite and each column within 1e-2 of its largest magnitude.  Adam and grad_parity run
            through the captured graph (one capture per configuration).
   files    file-backed inputs, written to a temporary directory that
            becomes the port's ``mesh.ASSET_DIR``: ``dragon.obj``, the
@@ -190,6 +222,7 @@ no result, when there is no CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -530,27 +563,76 @@ def time_over_tile(cuda_trace, bvh, name, step_rays):
     return row
 
 
+@contextlib.contextmanager
+def captures_of(graph_cls):
+    """Within: every ``graph_cls`` built (``integrator._StepGraph`` or
+    ``_SampleGraph``: one capture each) appends (its lanes, the seconds of
+    its build: the eager warm-up and the capture) to the yielded list."""
+    built = []
+    real_init = graph_cls.__init__
+
+    def timed_init(self, scene, meta, camera, cfg, sampler, px, *rest):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_init(self, scene, meta, camera, cfg, sampler, px, *rest)
+        torch.cuda.synchronize()
+        built.append((px.shape[0], time.perf_counter() - t0))
+
+    graph_cls.__init__ = timed_init
+    try:
+        yield built
+    finally:
+        graph_cls.__init__ = real_init
+
+
 def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
-                 cfg, expect, forbid):
+                 cfg, expect, forbid, kept=False):
     """One main path: 1 spp warm-up, launch counts set to 0, the timed
     render, the counts read.  ``expect`` kernels must have been launched
     1 + G times per wavefront step (once on the main soup, once on each of
     the scene's G instanced groups), ``forbid`` kernels not at all; a
     replay of the captured step counts the launches its capture recorded.
-    Returns (image, launches)."""
+    The warm-up's configuration is another (spp is part of a kept graph's
+    key), so the timed render is a first call: it captures its step.  With
+    ``kept`` a second call of the same configuration follows, which must
+    capture nothing and give the first call's image, rays, steps and
+    launches.  Returns (image, launches)."""
     integ.render(scene, meta, cam, dataclasses.replace(cfg, spp=1))
-    torch.cuda.synchronize()
-    cuda_trace.reset_launch_counts()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    a.record()
-    img, stats = integ.render(scene, meta, cam, cfg, with_stats=True)
-    b.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {k: cuda_trace.LAUNCHES[k] for k in (*KERNELS, *V1)}
-    render_ms = a.elapsed_time(b)
+    calls = []
+    with captures_of(integ._StepGraph) as caps:
+        for _ in range(2 if kept else 1):
+            torch.cuda.synchronize()
+            cuda_trace.reset_launch_counts()
+            caps.clear()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            img, stats = integ.render(scene, meta, cam, cfg, with_stats=True)
+            b.record()
+            torch.cuda.synchronize()
+            calls.append(dict(
+                img=img, stats=stats, wall_s=time.perf_counter() - t0,
+                ms=a.elapsed_time(b), captures=len(caps),
+                launches={k: cuda_trace.LAUNCHES[k] for k in (*KERNELS, *V1)}))
+    img, stats = calls[0]["img"], calls[0]["stats"]
+    wall_s, render_ms = calls[0]["wall_s"], calls[0]["ms"]
+    launches, captures = calls[0]["launches"], calls[0]["captures"]
+    kept_fields = {}
+    if kept:
+        again = calls[1]
+        kept_fields = dict(
+            kept_ms=again["ms"], kept_wall_s=again["wall_s"],
+            kept_mray_s=again["stats"].n_rays / (again["ms"] * 1e-3) / 1e6,
+            kept_captures=again["captures"],
+            kept_equal=torch.equal(again["img"], img))
+        if again["captures"] or not kept_fields["kept_equal"] \
+                or again["stats"] != stats or again["launches"] != launches:
+            raise AssertionError(f"{phase}: the kept call captured "
+                                 f"{again['captures']} times or differs from "
+                                 f"the first: {kept_fields}, "
+                                 f"{again['launches']} vs {launches}")
+    del calls
     nonfinite = int((~torch.isfinite(img)).sum())
     linear = tm_mod.invert(eotf_mod.decode(img, cfg.eotf), cfg.tone_map)
     mean_rgb = [float(v) for v in linear.reshape(-1, 3).mean(0)]
@@ -560,7 +642,10 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
          mray_s=stats.n_rays / (render_ms * 1e-3) / 1e6, rays=stats.n_rays,
          rays_per_spp=stats.n_rays / cfg.spp, steps=stats.n_steps,
          launches=launches, groups=len(scene.instanced), nonfinite=nonfinite,
-         mean_linear_rgb=mean_rgb)
+         mean_linear_rgb=mean_rgb, captures=captures, **kept_fields)
+    if captures != 1:
+        raise AssertionError(f"{phase}: the first call captured {captures} "
+                             "step graphs, expected 1")
     per_step = 1 + len(scene.instanced)
     for k in expect:
         if launches[k] != stats.n_steps * per_step:
@@ -578,40 +663,65 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
 
 def graph_vs_eager(integ, cuda_trace, scene, meta, cam, cfg, expect):
     """``render_wavefront``'s tile loop with each tile's steps replayed
-    from the captured step, against the eager step loop (its plain
-    version), in turns (eager, graph, graph, eager).  Gates: the films
-    equal bit for bit (each way also equal to its own repeat), the same
-    rays and steps, the ``expect`` kernels launched 1 + G times a step
-    both ways (G instanced groups) and no other.  Returns each way's
-    seconds, ms a step, Mray/s and peak device memory."""
+    from the kept captured step, against the eager step loop (its plain
+    version), in turns (eager, graph, graph, eager): the first graph call
+    starts from no kept graph and captures the step, the second finds it
+    kept.  Gates: the films equal bit for bit (each way also equal to its
+    own repeat), the same rays and steps, the ``expect`` kernels launched
+    1 + G times a step both ways (G instanced groups) and no other; one
+    capture in the first graph call, none in the kept one or the eager
+    loop; after ``release_graphs()`` the memory in use is back at its
+    level before the first graph call.  Returns each way's seconds (the
+    graph's: first call, kept call), ms a step, Mray/s, peak device memory
+    and captures, and the memory the kept graph holds."""
     from tpu_pathtracer_torch.render import film as film_mod
+    from tpu_pathtracer_torch.render import graphs
 
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
     films, ways = {}, {False: [], True: []}
-    for graphed in (False, True, True, False):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_trace.reset_launch_counts()
-        t0 = time.perf_counter()
-        film, stats = integ._wavefront_film(scene, meta, cam, cfg, 0, None,
-                                            None, graphed=graphed)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        ways[graphed].append(dict(
-            s=wall, stats=stats, peak=torch.cuda.max_memory_allocated(),
-            launches={k: cuda_trace.LAUNCHES[k] for k in (*KERNELS, *V1)}))
-        if graphed not in films:
-            films[graphed] = film
-        elif not torch.equal(film, films[graphed]):
-            raise AssertionError(f"graph: two {('eager', 'graph')[graphed]} "
-                                 f"renders differ ({cfg})")
-        del film
+    with captures_of(integ._StepGraph) as caps:
+        for graphed in (False, True, True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_trace.reset_launch_counts()
+            caps.clear()
+            t0 = time.perf_counter()
+            film, stats = integ._wavefront_film(scene, meta, cam, cfg, 0,
+                                                None, None, graphed=graphed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ways[graphed].append(dict(
+                s=wall, stats=stats, peak=torch.cuda.max_memory_allocated(),
+                captures=[t for _, t in caps],
+                launches={k: cuda_trace.LAUNCHES[k]
+                          for k in (*KERNELS, *V1)}))
+            if graphed not in films:
+                films[graphed] = film
+            elif not torch.equal(film, films[graphed]):
+                raise AssertionError(f"graph: two "
+                                     f"{('eager', 'graph')[graphed]} renders "
+                                     f"differ ({cfg})")
+            del film
     equal = torch.equal(films[True], films[False])
     rmse = display_rmse(*(film_mod.finalize(films[g], cfg.spp,
                                             tone_map=cfg.tone_map,
                                             eotf=cfg.eotf)
                           for g in (True, False)))
     del films
-    out = dict(film_equal=equal, display_rmse=rmse)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    out = dict(film_equal=equal, display_rmse=rmse, memory_bytes=dict(
+        before=dict(allocated=base[0], reserved=base[1]),
+        kept=dict(allocated=held[0], reserved=held[1]),
+        after_release=dict(allocated=after[0], reserved=after[1])))
     for graphed, runs in ways.items():
         st = runs[0]["stats"]
         secs = [r["s"] for r in runs]
@@ -620,7 +730,16 @@ def graph_vs_eager(integ, cuda_trace, scene, meta, cam, cfg, expect):
             ms_per_step=[x * 1e3 / st.n_steps for x in secs],
             mray_s=[st.n_rays / x / 1e6 for x in secs],
             peak_mem_bytes=[r["peak"] for r in runs],
+            captures=[len(r["captures"]) for r in runs],
+            capture_s=[t for r in runs for t in r["captures"]],
             launches=runs[0]["launches"])
+    if [len(r["captures"]) for r in ways[True]] != [1, 0] \
+            or any(r["captures"] for r in ways[False]):
+        raise AssertionError(f"graph: captures {out}, expected one in the "
+                             "first graph call and none in the kept one")
+    if after[0] != base[0]:
+        raise AssertionError(f"graph: {after[0] - base[0]} bytes in use "
+                             "after release_graphs()")
     if not equal:
         raise AssertionError(f"graph: the graph film differs from the eager "
                              f"film ({cfg}; display RMSE {rmse})")
@@ -692,6 +811,49 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
             raise AssertionError(f"graph: the capture recorded {recorded}, "
                                  f"a profiled replay traced {traced} "
                                  "traversal kernels")
+    check_kept_scene(integ, scene, meta, cam)
+
+
+KEPT_SCENE_SIZE = 256
+
+
+def check_kept_scene(integ, scene, meta, cam):
+    """A kept graph reads the call's scene, not the one it was captured
+    with: scene 17 at KEPT_SCENE_SIZE^2 (MIS + Z-Sobol, 4 spp, depth 16)
+    through ``render_wavefront`` twice, the second time with the dragon's
+    coat tint moved and the scene passed as a new object.  Gates: one
+    capture, in the first call; the second film equals the eager film of
+    the changed scene bit for bit and differs from the first."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render import graphs
+    from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
+
+    n = KEPT_SCENE_SIZE
+    c = integ.RenderConfig(width=n, height=n, spp=4, max_depth=16)
+    cam_n = dataclasses.replace(cam, width=n, height=n)
+    row = int(torch.nonzero(scene.materials.mat_type == MAT_CLEARCOAT)[0])
+    coat = scene.materials.coat_tint_coeff.clone()
+    coat[row] += 0.5
+    changed = parallel.merge_params(scene.map(torch.clone),
+                                    {"coat_tint_coeff": coat})
+    graphs.release_graphs()
+    t0 = time.perf_counter()
+    with captures_of(integ._StepGraph) as caps:
+        first = integ.render_wavefront(scene, meta, cam_n, c)
+        first_captures = len(caps)
+        second = integ.render_wavefront(changed, meta, cam_n, c)
+    eager, _ = integ._wavefront_film(changed, meta, cam_n, c, 0, None, None,
+                                     graphed=False)
+    out = dict(captures=[first_captures, len(caps) - first_captures],
+               equal_to_eager_of_changed=torch.equal(second, eager),
+               differs_from_first=not torch.equal(second, first))
+    graphs.release_graphs()
+    emit("graph", sub="kept_scene", scene=17, width=n, height=n, spp=c.spp,
+         max_depth=c.max_depth, seconds=time.perf_counter() - t0, **out)
+    if out["captures"] != [1, 0] or not out["equal_to_eager_of_changed"] \
+            or not out["differs_from_first"]:
+        raise AssertionError(f"graph: the kept graph did not render the "
+                             f"call's scene: {out}")
 
 
 # samples of the lockstep phase: the AOVs', and the ray count's and
@@ -715,21 +877,11 @@ def check_lockstep(integ, cuda_trace, scene, meta, cam, cfg):
     from tpu_pathtracer_torch import parallel
     from tpu_pathtracer_torch.render import graphs
 
-    captures = []     # (lanes, seconds) of each _SampleGraph built
-    real_init = integ._SampleGraph.__init__
-
-    def timed_init(self, scene, meta, camera, cfg, sampler, px, *rest):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        real_init(self, scene, meta, camera, cfg, sampler, px, *rest)
-        torch.cuda.synchronize()
-        captures.append((px.shape[0], time.perf_counter() - t0))
-
     dev = scene.device
     tile = integ.tile_lanes(cfg)
     n_tiles = cfg.width * cfg.height // tile
-    integ._SampleGraph.__init__ = timed_init
-    try:
+    # (lanes, seconds) of each _SampleGraph built
+    with captures_of(integ._SampleGraph) as captures:
         for names, c in ((FAST, cfg),
                          (PRECISE, dataclasses.replace(cfg, precise=True))):
             path = dataclasses.replace(c, spp=LOCKSTEP_SHARDED_SPP)
@@ -832,9 +984,7 @@ def check_lockstep(integ, cuda_trace, scene, meta, cam, cfg):
                     raise AssertionError(f"lockstep: {label} launches "
                                          f"{got}, expected {want}")
                 del out, ref, result
-    finally:
-        integ._SampleGraph.__init__ = real_init
-        graphs.release_graphs()
+    graphs.release_graphs()
 
 
 def display_rmse(a, b) -> float:
@@ -845,8 +995,10 @@ def check_progressive_and_cli(integ, scene, meta, cam):
     """``render_progressive`` of scene 7 at 256^2, 4 spp in chunks of 2,
     against the one-shot ``render`` (the tolerance of
     tests/test_progressive.py), then a resume from the checkpoint of the
-    first chunk; and the CLI as a subprocess, which must exit 0 and write
-    its PNG."""
+    first chunk; each run starts from no kept graph and must capture its
+    step once, whatever its chunks.  Then the CLI as a subprocess, which
+    must exit 0 and write its PNG."""
+    from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.render.progressive import render_progressive
 
     cfg = integ.RenderConfig(width=256, height=256, spp=4, max_depth=16)
@@ -860,17 +1012,30 @@ def check_progressive_and_cli(integ, scene, meta, cam):
         if state.spp_done == 2:
             raise Stop
 
+    captures = {}
+
+    def run(label, **kw):
+        graphs.release_graphs()
+        with captures_of(integ._StepGraph) as caps:
+            try:
+                return render_progressive(scene, meta, cam, cfg,
+                                          chunk_spp=2, **kw)
+            finally:
+                captures[label] = len(caps)
+
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "film.npz")
-        whole = render_progressive(scene, meta, cam, cfg, chunk_spp=2)
+        whole = run("chunks")
         try:
-            render_progressive(scene, meta, cam, cfg, checkpoint_path=ckpt,
-                               chunk_spp=2, on_chunk=stop_after_first)
+            run("stopped", checkpoint_path=ckpt, on_chunk=stop_after_first)
             raise AssertionError("the render was not stopped after a chunk")
         except Stop:
             pass
-        resumed = render_progressive(scene, meta, cam, cfg,
-                                     checkpoint_path=ckpt, chunk_spp=2)
+        resumed = run("resumed", checkpoint_path=ckpt)
+        graphs.release_graphs()
+        if captures != dict(chunks=1, stopped=1, resumed=1):
+            raise AssertionError(f"progressive: captures {captures}, "
+                                 "expected one a run")
         errs = {}
         for label, img in (("chunks", whole), ("resumed", resumed)):
             err = abs(img - ref)
@@ -879,7 +1044,8 @@ def check_progressive_and_cli(integ, scene, meta, cam):
                 raise AssertionError(f"progressive ({label}) differs from "
                                      f"the one-shot render by {err.max()}")
         emit("progressive", scene=7, width=256, height=256, spp=4,
-             chunk_spp=2, max_abs_err=errs, seconds=time.perf_counter() - t0)
+             chunk_spp=2, max_abs_err=errs, captures=captures,
+             seconds=time.perf_counter() - t0)
 
         png = os.path.join(tmp, "cli.png")
         t0 = time.perf_counter()
@@ -905,18 +1071,15 @@ GRAD_GRAPH_TOL = 1e-5
 
 def grad_column_errors(grads, ref) -> dict:
     """Each gradient column's largest difference from ``ref``'s over that
-    column's largest magnitude in ``ref``, over the values ``ref`` has
-    finite; infinite where the two have their non-finite values in
-    different places."""
+    column's largest magnitude in ``ref``; infinite where either column
+    holds a non-finite value."""
     out = {}
     for k, g in ref.items():
-        fin = torch.isfinite(g)
-        if not torch.equal(fin, torch.isfinite(grads[k])):
+        if not (torch.isfinite(g).all() and torch.isfinite(grads[k]).all()):
             out[k] = float("inf")
             continue
-        diff = (grads[k] - g).abs()[fin]
-        out[k] = (float(diff.max()) / max(float(g.abs()[fin].max()), 1e-30)
-                  if diff.numel() else 0.0)
+        out[k] = (float((grads[k] - g).abs().max())
+                  / max(float(g.abs().max()), 1e-30))
     return out
 
 
@@ -1033,10 +1196,8 @@ def check_train(integ, cuda_trace, scene_at, dev):
             raise AssertionError(f"grad_step: launches of {bad} or the "
                                  f"forward alone {forward} differ from "
                                  f"{want}")
-        # the rung's own parameters: every value finite (the other values
-        # are held to the eager program's, non-finite values included)
-        if any(runs[k]["finite"] != n_values
-               for k in ("eager", "graph_first", "graph")) \
+        # every value finite, at the rung's parameters and the other values
+        if any(r["finite"] != n_values for r in runs.values()) \
                 or not runs["eager"]["loss"] > 0.0:
             raise AssertionError("grad_step: a gradient value is not "
                                  "finite or the loss is 0")
@@ -1124,9 +1285,8 @@ def check_train(integ, cuda_trace, scene_at, dev):
             parallel.extract_params(s_cpu), s_cpu, m_cpu, c_cpu, pcfg, z,
             device="cpu")
         l_gpu, l_cpu = float(l_gpu), float(l_cpu)
-        rel = {k: float((g_gpu[k].cpu() - g).abs().max()
-                        / max(float(g.abs().max()), 1e-30))
-               for k, g in g_cpu.items()}
+        rel = grad_column_errors({k: g.cpu() for k, g in g_gpu.items()},
+                                 g_cpu)
         emit("train", sub="grad_parity", scene=17, width=pw, height=ph,
              spp=1, max_depth=3, precise=precise, loss_gpu=l_gpu,
              loss_cpu=l_cpu, loss_rel_err=abs(l_gpu - l_cpu) / l_cpu,
@@ -1137,6 +1297,32 @@ def check_train(integ, cuda_trace, scene_at, dev):
                                  f"{l_cpu}, gradients {rel}")
     parallel.release_graphs()
     return grad_launches
+
+
+def check_consistency(dev):
+    """The consistency phase: the default tier of the reference's
+    consistency matrix, then the PT-mean anchors.  Prints each gate's
+    value beside its limit and raises once all have run if any missed."""
+    from tpu_pathtracer_torch import consistency as cons
+
+    misses = []
+    for sid, sampler, floor in cons.DEFAULT_TIER:
+        t0 = time.perf_counter()
+        rec = cons.check_consistency(sid, sampler, *cons.DEFAULT_SIZE,
+                                     cons.DEFAULT_SPP, abs_floor=floor,
+                                     device=dev)
+        emit("consistency", sub="matrix", abs_floor=floor,
+             seconds=time.perf_counter() - t0, **rec)
+        misses += rec["misses"]
+    anchors = cons.load_anchors()
+    for sid in cons.SMOKE_ANCHOR_SCENES:
+        t0 = time.perf_counter()
+        rec = cons.check_pt_mean_anchor(sid, anchors[str(sid)], device=dev)
+        emit("consistency", sub="pt_mean_anchor",
+             seconds=time.perf_counter() - t0, **rec)
+        misses += rec["misses"]
+    if misses:
+        raise AssertionError(f"consistency: {misses}")
 
 
 # ---------------------------------------------------------------------------
@@ -1579,10 +1765,11 @@ def main() -> int:
     # ---- render: the fast and the precise main paths --------------------------
     helpers = (integ, cuda_trace, tm_mod, eotf_mod)
     img_fast, launches = timed_render(*helpers, "render", scene, meta, cam,
-                                      cfg, expect=FAST, forbid=PRECISE)
+                                      cfg, expect=FAST, forbid=PRECISE,
+                                      kept=True)
     img_precise, launches_p = timed_render(
         *helpers, "render_precise", scene, meta, cam, cfg_precise,
-        expect=PRECISE, forbid=FAST)
+        expect=PRECISE, forbid=FAST, kept=True)
     for k in PRECISE:
         launches[k] = launches_p[k]
     rmse = display_rmse(img_precise, img_fast)
@@ -1672,6 +1859,9 @@ def main() -> int:
                 raise AssertionError(f"scene {n}: card vs CPU display RMSE "
                                      f"{rmse} > {GATE_RMSE} "
                                      f"(precise={precise})")
+
+    # ---- consistency: the reference's independent checks ------------------
+    check_consistency(dev)
 
     # ---- train: the differentiable pass ---------------------------------------
     check_train(integ, cuda_trace, scene_at, dev)

@@ -6,8 +6,9 @@ Each cell is a scene, film size, strategy, sampler and hit test of
 chip_smoke.py's render and ladder phases (4 spp, depth 16, table_res 64;
 the scan-sized OBJ dragon of its files phase is left out: it needs a
 102 MB file written first).  For each, ``chip_smoke.graph_vs_eager``
-renders it four times in turns (eager, graph, graph, eager), holds the
-films equal bit for bit and the launches at 1 + G a step, and the script
+renders it four times in turns (eager, graph, graph, eager: the first
+graph call captures the step, the second replays the kept graph), holds
+the films equal bit for bit and the launches at 1 + G a step, and the script
 prints its JSON line: seconds, ms a step, Mray/s and peak device memory of
 each way.  Then the card's name and power limit.  Needs a CUDA device.
 """

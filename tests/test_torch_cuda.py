@@ -320,8 +320,10 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
     at 64x48, 2 spp, depth 6, in three tiles of 1,024 lanes (the last one
     padded).  Its film equals the eager step loop's bit for bit, with the
     same rays, steps and kernel launches (each kernel once a step); it
-    never runs the eager loop; a second call does not raise the peak
-    device memory, and after a call the memory in use is what it was."""
+    never runs the eager loop; a second call replays the kept graph and
+    does not raise the peak device memory, and after ``release_graphs()``
+    the memory in use is what it was before the first call."""
+    from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.render import integrator as tint
     from tpu_pathtracer_torch.scenes import load_scene
 
@@ -347,18 +349,97 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
         raise AssertionError("the card ran the eager step loop")
     monkeypatch.setattr(tint, "_render_tile_eager", no_eager)
     del runs, f0, f1, film
+    graphs.release_graphs()
     torch.cuda.synchronize()
     in_use = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     film = tint.render_wavefront(s, m, c, cfg).cpu()
     torch.cuda.synchronize()
     first = torch.cuda.max_memory_allocated()
-    assert torch.cuda.memory_allocated() == in_use
+    kept = graphs.kept("wavefront")
     again = tint.render_wavefront(s, m, c, cfg).cpu()
     torch.cuda.synchronize()
+    assert graphs.kept("wavefront") is kept is not None
     assert torch.cuda.max_memory_allocated() <= first
-    assert torch.cuda.memory_allocated() == in_use
     assert torch.equal(again, film)
+    del kept
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == in_use
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
+def test_kept_wavefront_graph_equals_eager(dev, precise, monkeypatch):
+    """The wavefront step graph kept between calls, scene 17 at 64x48,
+    4 spp, depth 6, tiles of 1,024 lanes: the first call captures once; a
+    second call, a progressive chunk (samples [2, 4) from the eager film
+    of [0, 2)) and ``render_progressive`` with chunks of 2 capture
+    nothing; every film and ``RenderStats`` equals the eager loop's bit
+    for bit, with each kernel launched once a step; a call with the
+    dragon's coat tint moved, the scene a new object, gives the eager
+    film of the changed scene; ``release_graphs()`` returns the memory in
+    use to its level before the first call."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.render import graphs
+    from tpu_pathtracer_torch.render import integrator as tint
+    from tpu_pathtracer_torch.render.progressive import render_progressive
+    from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    s, m, c = load_scene(17, 64, 48, table_res=16, device=dev)
+    cfg = tint.RenderConfig(width=64, height=48, spp=4, max_depth=6,
+                            precise=precise, tile_rays=1024)
+    names = (("closest_hit_precise", "any_hit_precise") if precise
+             else ("closest_hit", "any_hit"))
+    captures = []
+    real_init = tint._StepGraph.__init__
+
+    def counted_init(self, *a, **k):
+        captures.append(1)
+        real_init(self, *a, **k)
+    monkeypatch.setattr(tint._StepGraph, "__init__", counted_init)
+
+    def film(scene, graphed, start=0, end=None, accum=None):
+        return _launched(lambda: tint._wavefront_film(
+            scene, m, c, cfg, start, end, accum, graphed=graphed), names)
+
+    (eager, st_e), n_e = film(s, False)
+    (half, _), _ = film(s, False, 0, 2)
+    (chunk_e, st_ce), n_ce = film(s, False, 2, 4, half)
+    assert n_e == [st_e.n_steps] * 2 and n_ce == [st_ce.n_steps] * 2
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    in_use = torch.cuda.memory_allocated()
+    for label, run, ref, n_ref, want in (
+            ("first", lambda: film(s, True), (eager, st_e), n_e, 1),
+            ("kept", lambda: film(s, True), (eager, st_e), n_e, 0),
+            ("chunk", lambda: film(s, True, 2, 4, half), (chunk_e, st_ce),
+             n_ce, 0)):
+        captures.clear()
+        (got, st), n = run()
+        assert len(captures) == want, label
+        assert torch.equal(got, ref[0]) and st == ref[1], label
+        assert n == n_ref, label
+    captures.clear()
+    img = render_progressive(s, m, c, cfg, chunk_spp=2, device=dev)
+    assert captures == []
+    ref = tint.render(s, m, c, cfg, device=dev).cpu().numpy()
+    np.testing.assert_allclose(img, ref, rtol=1e-4, atol=2e-5)
+
+    row = int(torch.nonzero(s.materials.mat_type == MAT_CLEARCOAT)[0])
+    coat = s.materials.coat_tint_coeff.clone()
+    coat[row] += 0.5
+    changed = parallel.merge_params(s.map(torch.clone),
+                                    {"coat_tint_coeff": coat})
+    (moved, _), _ = film(changed, True)
+    assert captures == []
+    assert torch.equal(moved, film(changed, False)[0][0])
+    assert not torch.equal(moved, eager)
+    del got, moved, changed, coat
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    assert graphs.kept("wavefront") is None
+    assert torch.cuda.memory_allocated() == in_use
 
 
 def _grad_case(dev, precise):
@@ -396,8 +477,8 @@ def test_grad_graph_equals_eager(dev, precise):
     column's largest magnitude (the backward accumulates with atomics, so
     two eager calls may differ in the last bits); the launches are exact
     both ways; a call with other parameter values gives that call's eager
-    values, from the same graph (non-finite gradient values, which those
-    values give, in the same places)."""
+    values, from the same graph; every gradient value is finite at both
+    sets of values."""
     from tpu_pathtracer_torch import parallel
     from tpu_pathtracer_torch.render import graphs
 
@@ -417,7 +498,7 @@ def test_grad_graph_equals_eager(dev, precise):
         for k, g in g_e.items():
             fin = torch.isfinite(g)
             assert torch.equal(torch.isfinite(g_g[k]), fin), k
-            assert p is other or fin.all(), k
+            assert fin.all(), k
             err = float((g_g[k] - g).abs()[fin].max())
             assert err <= 1e-5 * float(g.abs()[fin].max()), (k, err)
         losses.append(float(l_g))
@@ -528,3 +609,44 @@ def test_lockstep_graphs_equal_eager(dev, precise, monkeypatch):
         assert graphs.kept("lockstep") is None
         assert torch.cuda.memory_allocated() == in_use, label
         del eager
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("sampler", ["random", "sobol"])
+@pytest.mark.parametrize("scene_id", [3, 6, 8, 9, 10, 17])
+def test_consistency_matrix_on_card(dev, scene_id, sampler):
+    """The reference's slow consistency matrix
+    (tests/test_consistency_matrix.py's ``test_consistency_matrix``) on
+    the port: pt vs nee vs mis at 64x48, 64 spp, depth 8, table_res 32,
+    abs_floor 0.035 on scenes 8 and 10, 0.025 on the others, the
+    self-calibrated noise gate of a second pt seed (101).  Prints each
+    pair's RMSE and the gates (run with ``-s``)."""
+    import json
+
+    from tpu_pathtracer_torch import consistency as cons
+
+    abs_floor = 0.035 if scene_id in (8, 10) else 0.025
+    rec = cons.check_consistency(scene_id, sampler, *cons.MATRIX_SIZE,
+                                 cons.MATRIX_SPP, abs_floor=abs_floor,
+                                 device=dev)
+    print("consistency_matrix", json.dumps(rec))
+    assert not rec["misses"], rec
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("scene_id", [6, 9, 10])
+def test_pt_mean_anchor_on_card(dev, scene_id):
+    """The reference's PT-mean anchors (tests/test_consistency_matrix.py's
+    ``test_pt_mean_anchors``) of the scenes chip_smoke.py leaves to the
+    slow tier: the port's PT mean at 64x48, 128 spp, Sobol, seed 7, depth
+    8 within 0.08 + 2 x the anchor's two-seed spread scaled to 128 spp.
+    Prints the mean, the anchor and the gate (run with ``-s``)."""
+    import json
+
+    from tpu_pathtracer_torch import consistency as cons
+
+    assert scene_id in cons.SLOW_ANCHOR_SCENES
+    rec = cons.check_pt_mean_anchor(
+        scene_id, cons.load_anchors()[str(scene_id)], device=dev)
+    print("pt_mean_anchor", json.dumps(rec))
+    assert not rec["misses"], rec

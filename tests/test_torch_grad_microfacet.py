@@ -17,6 +17,7 @@ comparison skips JAX's NaN entries and asserts that none lies in a column
 the floor's own kind reads.
 """
 import pytest
+import torch
 
 from test_grad import H, W, _cfg
 from test_torch_grad import (_fd_gate, _jax_loss_and_grads, _port,
@@ -28,6 +29,8 @@ from tpu_pathtracer.scene.builder import (Clearcoat, Emissive, Metal, Pbr,
                                           SceneBuilder)
 from tpu_pathtracer.spectrum import illum_d6500
 from tpu_pathtracer_torch import parallel as tpar
+from tpu_pathtracer_torch.render import microfacet as mf
+from tpu_pathtracer_torch.utils.vec import V2, V3
 
 # the floors of test_grad.py's one-bounce scenes
 FLOORS = {
@@ -113,3 +116,48 @@ def test_clearcoat_grads_match_fd(one_bounce):
                     ("coat_roughness", (row,))], tol=0.06)
     assert abs(got[("coat_tint_coeff", (row, 2))][0]) > 1e-7
     assert abs(got[("coat_roughness", (row,))][0]) > 1e-7
+
+
+def _v3(x, y, z):
+    return V3(*(torch.tensor([v], dtype=torch.float32) for v in (x, y, z)))
+
+
+def _refract_discarded(a):
+    """Refraction at sin^2 theta_t = 1 exactly (total internal reflection,
+    the direction discarded by ``ok``)."""
+    wt, ok = mf.refract(_v3(1.0, 0.0, 0.0), _v3(0.0, 0.0, 1.0), a / a)
+    return torch.where(ok, wt.x, 0.0)
+
+
+# a degenerate lane of each function, whose value the caller discards, as
+# a function of alpha (or of a scale of the direction)
+DEGENERATE = {
+    # grazing (cos theta = 0): tan^2 is infinite
+    "lambda_grazing": lambda a: mf.lambda_(_v3(1.0, 0.0, 0.0), a, a),
+    "d_grazing": lambda a: mf.distribution_d(_v3(1.0, 0.0, 0.0), a, a),
+    # the normal: sin theta = 0, phi undefined
+    "cos_sin_phi_normal": lambda a: sum(mf._cos_sin_phi(
+        V3(0.0 * a, 0.0 * a, a / a))),
+    # the VNDF frame of a direction 1e-14 off the normal, whose cross
+    # product with +Z (discarded for the x axis) has a squared length of
+    # ~1e-29
+    "vndf_near_normal": lambda a: mf.sample_vndf(
+        _v3(1e-14, 0.0, 1.0), V2(torch.tensor([0.3]), torch.tensor([0.6])),
+        a, a).x,
+    "refract_critical": _refract_discarded,
+}
+
+
+@pytest.mark.parametrize("case", list(DEGENERATE))
+def test_discarded_degenerate_lane_has_no_nan_gradient(case):
+    """Each microfacet function on a degenerate lane: no backward op gives
+    a non-finite value (``detect_anomaly`` raises on one, as it named
+    each of these before the repair), and the gradient is finite.  Before
+    the repair ``lambda_`` on a grazing direction put 0 x inf = NaN into
+    the roughness gradients of scene 17 (ROADMAP Queue 3)."""
+    a = torch.tensor([0.35], requires_grad=True)
+    with torch.autograd.detect_anomaly(check_nan=True):
+        out = DEGENERATE[case](a)
+        (g,) = torch.autograd.grad(out.sum(), a, allow_unused=True,
+                                   materialize_grads=True)
+    assert torch.isfinite(out).all() and torch.isfinite(g).all()

@@ -14,8 +14,9 @@ Provides:
                             image and its gradients w.r.t. the trainable
                             material columns (traversal detached, lobe,
                             light and roulette choices fixed)
-  * ``release_graphs``   -- frees the CUDA graphs ``loss_and_grads``
-                            and the lockstep renders keep on a card
+  * ``release_graphs``   -- frees the CUDA graphs ``loss_and_grads``,
+                            the lockstep and the wavefront renders keep
+                            on a card
   * ``train_step``       -- one SGD step on those columns
   * ``TrainState``       -- Adam (optax's arithmetic) with checkpoint and
                             resume, in the JAX package's npz layout

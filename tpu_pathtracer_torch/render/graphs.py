@@ -1,8 +1,11 @@
 """The CUDA graphs kept from call to call, as ``jax.jit`` keeps its
 compiled programs.
 
-One graph a slot: ``"lockstep"`` (``integrator._SampleGraphs``, the
-lockstep sample that ``render_accum``'s AOVs, ``count_rays_one_spp`` and
+One graph a slot: ``"wavefront"`` (``integrator._WavefrontGraph``, the
+wavefront step that ``render_wavefront`` -- ``render``, ``render_accum``'s
+pt, nee and mis, every ``render_progressive`` chunk -- replays),
+``"lockstep"`` (``integrator._SampleGraphs``, the lockstep sample that
+``render_accum``'s AOVs, ``count_rays_one_spp`` and
 ``parallel.render_sharded`` replay) and ``"grad"``
 (``parallel._LossAndGradsGraph``, ``loss_and_grads``'s forward and
 backward).  A slot's graph is kept under the key it was captured for --
@@ -10,9 +13,8 @@ the arguments a JAX program is specialised on (meta, camera, config,
 device) and the shape and dtype of every tensor it reads -- and a call
 with another key releases it before capturing its own.  A kept graph
 holds its static inputs and its memory pool (the saved activations of
-the grad step, the bounces' tensors of a lockstep sample) until
-``release_graphs``.  The wavefront's step graph
-(``integrator._StepGraph``) is not kept: it lives for one call.
+the grad step, the step's or the bounces' tensors) until
+``release_graphs``.
 """
 from __future__ import annotations
 

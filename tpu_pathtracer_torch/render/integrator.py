@@ -18,13 +18,17 @@ those of the JAX package:
     +9 russian roulette.
 
 The JAX package runs the steps of a tile inside one device program
-(``_wavefront_chunk``).  Here, on a CUDA device, ``render_wavefront``
-captures one step as a CUDA graph (``_StepGraph``) over static buffers
-(the tile's pixels and the state) and replays it, a chunk of
-``SYNC_EVERY`` steps at a time (``_wavefront_chunk``); the host reads the
-tile's all-done flag after each chunk and copies nothing to the device
-inside one.  On the CPU, which has no graphs, the steps run as eager ops
-(``_render_tile_eager``, also the graph's plain version on the card).
+(``_wavefront_chunk``), compiled once per configuration.  Here, on a CUDA
+device, ``render_wavefront`` replays one step captured as a CUDA graph
+(``_StepGraph``) over static buffers (the tile's pixels, the state and
+the last sample ``spp_end``), a chunk of ``SYNC_EVERY`` steps at a time
+(``_wavefront_chunk``); the host reads the tile's all-done flag after
+each chunk and copies nothing to the device inside one.  The graph is
+kept from call to call with a copy of the scene (``_WavefrontGraph``,
+slot "wavefront" of ``graphs``), so a repeat render and every
+progressive chunk of a configuration replay it.  On the CPU, which has
+no graphs, the steps run as eager ops (``_render_tile_eager``, also the
+graph's plain version on the card).
 Steps after a tile is done change nothing (no lane regenerates, traces or
 finalizes), so both give the same film, rays and steps.
 
@@ -420,25 +424,35 @@ class _SampleGraph:
         self.px = self.sample = self.film = self.n_rays = None
 
 
-class _SampleGraphs:
-    """The captured lockstep samples of one configuration: a copy of the
-    scene's tensors, the sampler, and one ``_SampleGraph`` per lane count
-    (a call's last or padded tile may be shorter), each captured on the
-    first tile of its count.  Kept from call to call in the "lockstep"
-    slot of ``graphs`` (``_sample_graphs``); each call copies its scene's
-    values in.  ``release`` frees the graphs and the copy."""
+class _KeptScene:
+    """What a kept graph of one configuration reads besides its own
+    buffers: a copy of the scene's tensors, whose addresses the capture
+    bakes in and into which each call copies its scene's values
+    (``load_scene``), and the configuration's sampler."""
 
     def __init__(self, scene, meta, camera, cfg):
         with torch.no_grad():
             self.scene = scene.map(torch.clone)
         self.args = (meta, camera, cfg, make_sampler(
             cfg.sampler, cfg.seed, cfg.spp, (cfg.width, cfg.height)))
-        self.by_lanes = {}
 
     def load_scene(self, scene) -> None:
         with torch.no_grad():
             for dst, src in zip(tensors_of(self.scene), tensors_of(scene)):
                 dst.copy_(src)
+
+
+class _SampleGraphs(_KeptScene):
+    """The captured lockstep samples of one configuration: the scene's
+    copy, the sampler, and one ``_SampleGraph`` per lane count (a call's
+    last or padded tile may be shorter), each captured on the first tile
+    of its count.  Kept from call to call in the "lockstep" slot of
+    ``graphs`` (``_sample_graphs``).  ``release`` frees the graphs and the
+    copy."""
+
+    def __init__(self, scene, meta, camera, cfg):
+        super().__init__(scene, meta, camera, cfg)
+        self.by_lanes = {}
 
     def _run(self, px, samples, accum) -> _SampleGraph:
         samples = list(samples)
@@ -514,7 +528,9 @@ def _wavefront_init(r: int, spp_start: int, accum):
 def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                     table):
     """One wavefront step of the pt / nee / mis integrator over a tile's
-    lanes."""
+    lanes.  ``spp_end``: an int, or a 0-d int32 tensor (the captured
+    step's, filled per call); either compares with the int32 sample
+    counters in int32."""
     strategy = cfg.strategy
     precise = bool(cfg.precise)
 
@@ -673,7 +689,7 @@ def _state_leaves(state) -> list:
     return out
 
 
-def _tile_done(state, spp_end: int) -> bool:
+def _tile_done(state, spp_end) -> bool:
     """Every lane idle with no sample left: the one host read of a chunk."""
     done = ~state["tracing"] & (state["sample"] + 1 >= spp_end)
     return bool(done.all())
@@ -699,26 +715,29 @@ def _render_tile_eager(scene, meta, camera, cfg, sampler, px, spp_start,
 class _StepGraph:
     """One wavefront step captured as a CUDA graph.
 
-    The graph reads its static buffers -- the tile's pixels ``px`` and the
-    state ``state`` -- and its last ops copy the new state back into
+    The graph reads its static buffers -- the tile's pixels ``px``, the
+    state ``state`` and the end of the sample range ``spp_end``, a 0-d
+    int32 tensor -- and its last ops copy the new state back into
     ``state``, so each replay is the tile's next step.  Built on the first
     tile: that tile's first step runs eagerly on a side stream (the
     warm-up: it builds the kernels and the sampler's device tables, and
     its launches count as any step's), then the step is captured.  The
     capture launches nothing; each replay adds the wrappers' counts of
-    the capture to ``cuda_trace.LAUNCHES``.  ``release`` frees the graph
-    and its memory pool."""
+    the capture to ``cuda_trace.LAUNCHES``.  ``load`` starts another tile
+    (of this call or a later one, any sample range); ``release`` frees the
+    graph and its memory pool."""
 
     def __init__(self, scene, meta, camera, cfg, sampler, px, spp_start,
                  spp_end, accum, table):
-        self.spp_start, self.spp_end = spp_start, spp_end
         self.px = px.clone()
+        self.spp_end = torch.full((), spp_end, dtype=torch.int32,
+                                  device=px.device)
         self.state = _wavefront_init(px.shape[0], spp_start, accum)
         self.leaves = _state_leaves(self.state)
 
         def step():
             new = _wavefront_step(scene, meta, camera, cfg, sampler, self.px,
-                                  spp_end, self.state, table)
+                                  self.spp_end, self.state, table)
             for dst, src in zip(self.leaves, _state_leaves(new)):
                 dst.copy_(src)
 
@@ -733,10 +752,12 @@ class _StepGraph:
                 step()
         self.steps = 1          # steps of the current tile run so far
 
-    def load(self, px, accum) -> None:
-        """Start the next tile: its pixels, its initial state."""
+    def load(self, px, accum, spp_start: int, spp_end: int) -> None:
+        """Start a tile: its pixels, its samples [spp_start, spp_end), its
+        initial state."""
         self.px.copy_(px)
-        init = _wavefront_init(px.shape[0], self.spp_start, accum)
+        self.spp_end.fill_(spp_end)
+        init = _wavefront_init(px.shape[0], spp_start, accum)
         for dst, src in zip(self.leaves, _state_leaves(init)):
             dst.copy_(src)
         self.steps = 0
@@ -748,7 +769,57 @@ class _StepGraph:
 
     def release(self) -> None:
         self.graph.reset()
-        self.px = self.state = self.leaves = None
+        self.px = self.spp_end = self.state = self.leaves = None
+
+
+class _WavefrontGraph(_KeptScene):
+    """The captured wavefront step of one configuration: the scene's copy,
+    the spectral table (a static buffer filled from the scene's spectra
+    at each call), the sampler and one ``_StepGraph``, captured on the
+    first tile the entry serves (every tile of a configuration has
+    ``tile_lanes`` lanes).  Kept from call to call in the "wavefront" slot
+    of ``graphs`` (``_wavefront_graph``), as ``jax.jit`` keeps
+    ``_wavefront_chunk``.  ``release`` frees the graph and the copy."""
+
+    def __init__(self, scene, meta, camera, cfg):
+        super().__init__(scene, meta, camera, cfg)
+        with torch.no_grad():
+            self.table = _spectral_table(self.scene)
+        self.step = None
+
+    def load_scene(self, scene) -> None:
+        super().load_scene(scene)
+        with torch.no_grad():
+            self.table.copy_(_spectral_table(scene))
+
+    def run_tile(self, px, accum, spp_start: int, spp_end: int) -> _StepGraph:
+        """The tile ``px``'s steps over samples [spp_start, spp_end), from
+        ``accum``: the captured step replayed until the tile is done."""
+        if self.step is None:
+            meta, camera, cfg, sampler = self.args
+            self.step = _StepGraph(self.scene, meta, camera, cfg, sampler,
+                                   px, spp_start, spp_end, accum, self.table)
+        else:
+            self.step.load(px, accum, spp_start, spp_end)
+        while not _wavefront_chunk(self.step):
+            pass
+        return self.step
+
+    def release(self) -> None:
+        if self.step is not None:
+            self.step.release()
+        self.step = self.scene = self.table = None
+
+
+def _wavefront_graph(scene, meta, camera, cfg) -> _WavefrontGraph:
+    """The kept wavefront step of this configuration (captured anew, the
+    one kept before released, for another), with ``scene``'s values
+    copied in."""
+    key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene))
+    kept = graphs_mod.keep("wavefront", key, lambda: _WavefrontGraph(
+        scene, meta, camera, cfg))
+    kept.load_scene(scene)
+    return kept
 
 
 def _wavefront_chunk(graph: _StepGraph) -> bool:
@@ -768,8 +839,9 @@ def render_wavefront(scene, meta, camera, cfg: RenderConfig,
     on the scene's device; with ``with_stats`` also a RenderStats.
 
     On a CUDA device each tile's steps are replays of one step captured
-    as a CUDA graph (``_StepGraph``, captured once per call and released
-    at its end); on the CPU they run as eager ops
+    as a CUDA graph (``_StepGraph``), kept with a copy of the scene for the
+    next call of the same configuration, whatever its sample range
+    (``graphs.release_graphs`` frees it); on the CPU they run as eager ops
     (``_render_tile_eager``).  The film, rays and steps are the same."""
     _check_config(cfg)
     if cfg.strategy not in PATH_STRATEGIES:
@@ -785,9 +857,9 @@ def render_wavefront(scene, meta, camera, cfg: RenderConfig,
 def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
                     accum_init, graphed: bool):
     """``render_wavefront``'s tile loop -> (film, RenderStats): each tile's
-    steps replayed from a captured graph (``graphed``, on a CUDA device)
-    or run as eager ops (the CPU, and the graph's plain version on the
-    card)."""
+    steps replayed from the kept captured graph (``graphed``, on a CUDA
+    device) or run as eager ops (the CPU, and the graph's plain version on
+    the card)."""
     dev = scene.device
     spp_end = cfg.spp if spp_end is None else spp_end
     n_px = cfg.width * cfg.height
@@ -795,39 +867,31 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
     pixel_xy, n_tiles = _padded_pixels(cfg, dev)
     ai = _padded_accum(accum_init, n_px, n_tiles * tile, dev)
 
-    sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
-                           (cfg.width, cfg.height))
-    table = _spectral_table(scene)
+    kept = None
+    if graphed and spp_start < spp_end:
+        kept = _wavefront_graph(scene, meta, camera, cfg)
+    else:
+        sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
+                               (cfg.width, cfg.height))
+        table = _spectral_table(scene)
     outs = []
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     n_steps = 0
-    graph = None
-    try:
-        for k in range(n_tiles):
-            px_tile = pixel_xy[k * tile:(k + 1) * tile]
-            ai_tile = ai[k * tile:(k + 1) * tile]
-            if not graphed or spp_start >= spp_end:
-                state, steps = _render_tile_eager(
-                    scene, meta, camera, cfg, sampler, px_tile, spp_start,
-                    spp_end, ai_tile, table)
-            else:
-                with torch.no_grad(), torch.cuda.device(dev):
-                    if graph is None:
-                        graph = _StepGraph(scene, meta, camera, cfg, sampler,
-                                           px_tile, spp_start, spp_end,
-                                           ai_tile, table)
-                    else:
-                        graph.load(px_tile, ai_tile)
-                    while not _wavefront_chunk(graph):
-                        pass
-                state, steps = graph.state, graph.steps
-            a = state["accum"]
-            outs.append(torch.stack([a.x, a.y, a.z], -1))
-            n_rays = n_rays + state["n_rays"]
-            n_steps += steps
-    finally:
-        if graph is not None:
-            graph.release()
+    for k in range(n_tiles):
+        px_tile = pixel_xy[k * tile:(k + 1) * tile]
+        ai_tile = ai[k * tile:(k + 1) * tile]
+        if kept is None:
+            state, steps = _render_tile_eager(
+                scene, meta, camera, cfg, sampler, px_tile, spp_start,
+                spp_end, ai_tile, table)
+        else:
+            with torch.no_grad(), torch.cuda.device(dev):
+                graph = kept.run_tile(px_tile, ai_tile, spp_start, spp_end)
+            state, steps = graph.state, graph.steps
+        a = state["accum"]
+        outs.append(torch.stack([a.x, a.y, a.z], -1))
+        n_rays = n_rays + state["n_rays"]
+        n_steps += steps
     accum = torch.cat(outs, 0)[:n_px]
     return accum, RenderStats(n_rays=int(n_rays), n_steps=n_steps)
 

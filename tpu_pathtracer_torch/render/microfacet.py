@@ -36,7 +36,9 @@ def _tan2_theta(w: V3):
 def _cos_sin_phi(w: V3):
     sin_t = _sqrt0(torch.clamp(1.0 - _cos2_theta(w), min=0.0))
     safe = sin_t > 0.0
-    inv = 1.0 / torch.clamp(sin_t, min=1e-20)
+    # 0 off ``safe``, where the value is discarded: 1 / clamp(sin_t, 1e-20)
+    # has the backward 0 x 1e40 = NaN there (clamp's own backward drops it)
+    inv = torch.where(safe, 1.0 / torch.where(safe, sin_t, 1.0), 0.0)
     cp = torch.where(safe, torch.clamp(w.x * inv, -1, 1), 1.0)
     sp = torch.where(safe, torch.clamp(w.y * inv, -1, 1), 0.0)
     return cp, sp
@@ -46,20 +48,29 @@ def distribution_d(wm: V3, ax, ay):
     """Trowbridge-Reitz D(wm)."""
     t2 = _tan2_theta(wm)
     c4 = _cos2_theta(wm) ** 2
+    keep = torch.isfinite(t2) & (c4 > 0)
+    # a discarded lane computes with tan^2 = 0 and cos^4 = 1: its infinite
+    # tan^2, or the 1e40 of 1 / 1e-20^2, would put 0 x inf = NaN into the
+    # gradient of alpha
+    t2 = torch.where(keep, t2, 0.0)
     cp, sp = _cos_sin_phi(wm)
     e = t2 * (cp * cp / torch.clamp(ax * ax, min=1e-12)
               + sp * sp / torch.clamp(ay * ay, min=1e-12))
-    d = 1.0 / (math.pi * ax * ay * torch.clamp(c4, min=1e-20) * (1.0 + e) ** 2)
-    return torch.where(torch.isfinite(t2) & (c4 > 0), d, 0.0)
+    c4 = torch.clamp(torch.where(keep, c4, 1.0), min=1e-20)
+    d = 1.0 / (math.pi * ax * ay * c4 * (1.0 + e) ** 2)
+    return torch.where(keep, d, 0.0)
 
 
 def lambda_(w: V3, ax, ay):
     """Smith Lambda."""
     t2 = _tan2_theta(w)
+    fin = torch.isfinite(t2)
     cp, sp = _cos_sin_phi(w)
     a2 = (cp * ax) ** 2 + (sp * ay) ** 2
-    lam = (torch.sqrt(1.0 + a2 * t2) - 1.0) / 2.0
-    return torch.where(torch.isfinite(t2), lam, 0.0)
+    # 0 on a discarded (grazing) lane: a2 x inf would put 0 x inf = NaN into
+    # the gradient of alpha
+    lam = (torch.sqrt(1.0 + a2 * torch.where(fin, t2, 0.0)) - 1.0) / 2.0
+    return torch.where(fin, lam, 0.0)
 
 
 def g1(w: V3, ax, ay):
@@ -85,9 +96,12 @@ def sample_vndf(w: V3, u: V2, ax, ay) -> V3:
     wh = sel(wh.z < 0.0, -wh, wh)
 
     zero = torch.zeros_like(wh.z)
-    up_cross = V3(-wh.y, wh.x, zero)
-    t1 = sel(wh.z < 0.99999, normalize3(up_cross),
-             V3(torch.ones_like(wh.z), zero, zero))
+    x_axis = V3(torch.ones_like(wh.z), zero, zero)
+    # a discarded lane normalizes x_axis: the cross product there may be
+    # near 0, where rsqrt's backward overflows and 0 x inf = NaN
+    tilted = wh.z < 0.99999
+    t1 = sel(tilted, normalize3(sel(tilted, V3(-wh.y, wh.x, zero), x_axis)),
+             x_axis)
     t2 = cross3(wh, t1)
 
     r = torch.sqrt(u.x)
@@ -114,7 +128,7 @@ def refract(wi: V3, n: V3, eta):
     sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     sin2_t = sin2_i / (eta * eta)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = _sqrt0(torch.clamp(1.0 - sin2_t, min=0.0))
     wt = -wi * (1.0 / eta) + n * (cos_i / eta - cos_t)
     ok = ~tir & (dot3(wt, wt) > 1e-12)
     return normalize3(wt), ok
