@@ -66,7 +66,7 @@ line per phase; any failed check raises and the script exits non-zero.
            each way, the capture's seconds, the memory allocated and
            reserved before, with the kept graph and after its release,
            and a steady step of each (device ms, busy share, device ops;
-           ``profile_step``).  Then ``kept_scene``: scene 17 at 256x256
+           ``profile_steps``).  Then ``kept_scene``: scene 17 at 256x256
            rendered twice with the graph kept, the second time with the
            dragon's coat tint moved and the scene a new object; its film
            must equal the eager film of the changed scene and differ from
@@ -563,6 +563,53 @@ def time_over_tile(cuda_trace, bvh, name, step_rays):
     return row
 
 
+# the traversal kernels of csrc/trace_kernels.cu, by their names in a trace
+TRAVERSAL_KERNELS = ("team_kernel", "binary_any_hit_kernel")
+
+
+def profile_steps(run_step, n: int, dev) -> dict:
+    """Time ``n`` calls of ``run_step`` without the profiler (host wall,
+    synchronised), then profile ``n`` more (CPU + CUDA activity) -> per
+    step: ``step_ms`` and ``profiled_step_ms`` (host wall), ``device_ms``
+    (summed device time), ``busy_share`` (device_ms / step_ms),
+    ``launches`` (device ops), ``kernels`` (launches of each traversal
+    kernel) and ``top_kernels`` (the 12 with the most device time)."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run_step()
+    sync()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run_step()
+        sync()
+        profiled_ms = (time.perf_counter() - t0) / n * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.key_averages() if e.device_type == cuda
+              and e.device_time_total > 0]
+    device_us = sum(e.device_time_total for e in device)
+    top = sorted(device, key=lambda e: -e.device_time_total)[:12]
+    return dict(
+        step_ms=step_ms, profiled_step_ms=profiled_ms,
+        device_ms=device_us / n / 1e3,
+        busy_share=device_us / 1e3 / n / step_ms,
+        launches=sum(e.count for e in device) / n,
+        kernels={k: sum(e.count for e in device if k in e.key) / n
+                 for k in TRAVERSAL_KERNELS},
+        top_kernels=[dict(name=e.key[:80],
+                          ms=e.device_time_total / n / 1e3,
+                          calls=e.count / n) for e in top])
+
+
 @contextlib.contextmanager
 def captures_of(graph_cls):
     """Within: every ``graph_cls`` built (``integrator._StepGraph`` or
@@ -758,11 +805,9 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
     precise: ``graph_vs_eager``, then the captured step alone: the
     capture's seconds, and a steady step each way (steps 6-9 of the first
     tile, after 2-5 timed without the profiler) by
-    ``profile_step.profile_steps``: device ms, busy share, device ops.
+    ``profile_steps``: device ms, busy share, device ops.
     Gate: in a profiled replay the traversal kernels of the trace equal
     the launches the capture recorded."""
-    from tpu_pathtracer_torch.profile_step import (TRAVERSAL_KERNELS,
-                                                   profile_steps)
     from tpu_pathtracer_torch.render.sampler import make_sampler
 
     dev = scene.device
@@ -784,7 +829,7 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
             capture_s = time.perf_counter() - t0
             try:
                 replay = profile_steps(graph.replay, 4, dev)
-                recorded = dict(graph.launches)
+                recorded = dict(graph.recorded.launches)
             finally:
                 graph.release()
             box = dict(state=integ._wavefront_step(
@@ -1087,8 +1132,6 @@ def check_train(integ, cuda_trace, scene_at, dev):
     """The train phase: grad_step (fast and precise), adam, grad_parity.
     Returns the grad step's launches, fast and precise."""
     from tpu_pathtracer_torch import parallel
-    from tpu_pathtracer_torch.profile_step import (TRAVERSAL_KERNELS,
-                                                   profile_steps)
     from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
 
@@ -1155,7 +1198,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
         forward = {k: cuda_trace.LAUNCHES[k] for k in want}
         # one replay under the profiler: its kernels and device time
         replay = profile_steps(lambda: graph(params), 1, dev)
-        recorded = dict(graphs.kept("grad").launches)
+        recorded = dict(graphs.kept("grad").recorded.launches)
         traced = sum(replay["kernels"][k] for k in TRAVERSAL_KERNELS)
         errs = {label: grad_column_errors(runs[label]["grads"],
                                           runs[ref]["grads"])

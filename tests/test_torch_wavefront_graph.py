@@ -153,7 +153,8 @@ def test_step_copies_nothing_from_the_host(guard, scene, strategy, sampler,
     # the guard changed nothing: the step is a pure function of its state
     again = tint._wavefront_step(s, m, c, cfg, smp, px, cfg.spp, state,
                                  table)
-    assert int(out["n_rays"]) == int(again["n_rays"]) > 0
+    assert int(out["n_closest"]) == int(again["n_closest"]) > 0
+    assert int(out["n_shadow"]) == int(again["n_shadow"])
     assert torch.equal(out["accum"].x, again["accum"].x)
 
 

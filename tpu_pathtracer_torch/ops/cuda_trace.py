@@ -14,10 +14,11 @@ tensor [ox oy oz dx dy dz t_max] (``ops.trace.pack_rays``).  K1, K3 and
 K2p read its 4-wide rows ``nodes_w`` with ``tri_m12`` (K1) or ``tri9p``;
 K2 walks the binary tree ``nodes_f``, ``nodes_i`` with ``tri_m12``.  For a
 CPU tensor a wrapper runs the plain version; for a CUDA tensor it launches
-the kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel name;
-a wrapper called while a CUDA graph is captured launches nothing, so
-``captured_launches`` takes its counts back out, and each replay of the
-graph adds them.
+the kernel or raises.  ``LAUNCHES`` counts kernel launches per kernel name
+and ``LANES`` their lanes (rays, live or dead); a wrapper called while a
+CUDA graph is captured launches nothing, so ``captured_launches`` takes
+its counts back out, and each replay of the graph adds them
+(``count_replay``).
 ``any_hit_precise_v1`` launches the binary walk (``tri9``) that K2p
 replaced: the yardstick of its times, called by no render path.
 
@@ -36,6 +37,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -55,28 +57,59 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# kernel launches per kernel name; chip_smoke.py resets and reads these
+# kernel launches and their lanes per kernel name; chip_smoke.py resets
+# and reads these
 LAUNCHES = collections.Counter()
+LANES = collections.Counter()
+# the closest-hit and the any-hit kernels, by wrapper name
+CLOSEST_KERNELS = ("closest_hit", "closest_hit_precise")
+ANY_HIT_KERNELS = ("any_hit", "any_hit_precise", "any_hit_precise_v1")
 
 _LIB = None
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    LANES.clear()
+
+
+def _count_launch(name: str, lanes: int) -> None:
+    LAUNCHES[name] += 1
+    LANES[name] += lanes
+
+
+def lanes_by_kind() -> tuple[int, int]:
+    """The lanes launched so far: (closest hit, any hit)."""
+    return (sum(LANES[k] for k in CLOSEST_KERNELS),
+            sum(LANES[k] for k in ANY_HIT_KERNELS))
+
+
+class Recorded(NamedTuple):
+    """The launches a capture recorded and their lanes, per kernel name."""
+    launches: collections.Counter
+    lanes: collections.Counter
 
 
 @contextlib.contextmanager
 def captured_launches():
-    """Around a CUDA graph capture: yields a Counter that, on exit, holds
-    the launches the wrappers counted inside, which are taken back out of
-    ``LAUNCHES`` (a capture records the kernels, it does not run them)."""
-    before = collections.Counter(LAUNCHES)
-    recorded = collections.Counter()
+    """Around a CUDA graph capture: yields a ``Recorded`` that, on exit,
+    holds the launches and lanes the wrappers counted inside, which are
+    taken back out of ``LAUNCHES`` and ``LANES`` (a capture records the
+    kernels, it does not run them)."""
+    recorded = Recorded(collections.Counter(), collections.Counter())
+    before = [counter.copy() for counter in (LAUNCHES, LANES)]
     try:
         yield recorded
     finally:
-        recorded.update(LAUNCHES - before)
-        LAUNCHES.subtract(recorded)
+        for counter, was, rec in zip((LAUNCHES, LANES), before, recorded):
+            rec.update(counter - was)
+            counter.subtract(rec)
+
+
+def count_replay(recorded: Recorded) -> None:
+    """A replay of a captured graph: its launches and lanes counted."""
+    LAUNCHES.update(recorded.launches)
+    LANES.update(recorded.lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +295,7 @@ def _launch(name, bvh, precise, any_hit, rays, counters):
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    _count_launch(name, rays.shape[1])
     return out[0] if any_hit else out
 
 
@@ -279,7 +312,7 @@ def _launch_binary(name, bvh, precise, rays, counters):
             torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    _count_launch(name, rays.shape[1])
     return occ
 
 

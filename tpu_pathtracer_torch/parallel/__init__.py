@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..device import resolve_device
 from ..ops import cuda_trace
 from ..render import film as film_mod
@@ -188,11 +189,13 @@ def _loss_and_grads(params, scene, meta, camera, cfg, target, group, dev,
     scene = scene.to(dev)
     px, tgt = _block(pixel_xy, n, rank), _block(target, n, rank)
     if graphed:
-        key = (meta, camera, cfg, group, n, rank, dev,
-               graphs_mod.shapes_of(scene), tuple(p),
-               graphs_mod.shapes_of((*p.values(), tgt)))
-        loss, grads = graphs_mod.keep("grad", key, lambda: _LossAndGradsGraph(
-            p, scene, meta, camera, cfg, px, tgt, n_total))(p, scene, tgt)
+        with telemetry.span("graphs.lookup", slot="grad"):
+            key = (meta, camera, cfg, group, n, rank, dev,
+                   graphs_mod.shapes_of(scene), tuple(p),
+                   graphs_mod.shapes_of((*p.values(), tgt)))
+            graph = graphs_mod.keep("grad", key, lambda: _LossAndGradsGraph(
+                p, scene, meta, camera, cfg, px, tgt, n_total))
+        loss, grads = graph(p, scene, tgt)
     else:
         loss, grads = _loss_program(
             {k: v.requires_grad_(True) for k, v in p.items()}, scene, meta,
@@ -233,7 +236,9 @@ class _LossAndGradsGraph:
     runs eagerly on a side stream (the warm-up, whose loss and gradients
     are that call's), then it is captured.  The capture launches nothing;
     each replay adds the wrappers' counts of the capture to
-    ``cuda_trace.LAUNCHES``.  The graph's memory pool holds the saved
+    ``cuda_trace.LAUNCHES`` and ``LANES``.  A call's copies in, replay and
+    clones out are its spans ``grad.load``, ``grad.replay`` and
+    ``grad.outputs``.  The graph's memory pool holds the saved
     activations between calls until ``release``."""
 
     def __init__(self, params, scene, meta, camera, cfg, px, target,
@@ -256,7 +261,7 @@ class _LossAndGradsGraph:
                 self.first = program()
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with cuda_trace.captured_launches() as self.launches:
+            with cuda_trace.captured_launches() as self.recorded:
                 with torch.cuda.graph(self.graph):
                     self.loss, self.grads = program()
 
@@ -266,15 +271,18 @@ class _LossAndGradsGraph:
         if self.first is not None:
             out, self.first = self.first, None
             return out
-        with torch.no_grad():
+        with torch.no_grad(), telemetry.span("grad.load"):
             for k, v in params.items():
                 self.params[k].copy_(v)
             for dst, src in zip(tensors_of(self.scene), tensors_of(scene)):
                 dst.copy_(src)
             self.target.copy_(target)
-        self.graph.replay()
-        cuda_trace.LAUNCHES.update(self.launches)
-        return self.loss.clone(), {k: g.clone() for k, g in self.grads.items()}
+        with telemetry.span("grad.replay"):
+            self.graph.replay()
+        cuda_trace.count_replay(self.recorded)
+        with telemetry.span("grad.outputs"):
+            return self.loss.clone(), {k: g.clone()
+                                       for k, g in self.grads.items()}
 
     def release(self) -> None:
         self.graph.reset()
@@ -377,19 +385,20 @@ def _adam_update(state: TrainState, grads: dict) -> TrainState:
     """optax.adam(lr) on ``grads``, in its order of operations:
     scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias
     correction by 1 - b**count) then scale_by_learning_rate (x -lr), then
-    apply_updates (p + u)."""
-    count = state.count + 1
-    c1 = 1 - ADAM_B1 ** count.to(torch.float32)
-    c2 = 1 - ADAM_B2 ** count.to(torch.float32)
-    params, mu, nu = {}, {}, {}
-    for k, p in state.params.items():
-        g = grads[k]
-        mu[k] = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[k]
-        nu[k] = (1 - ADAM_B2) * g ** 2 + ADAM_B2 * state.nu[k]
-        u = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + ADAM_EPS)
-        params[k] = p + u * -state.lr
-    return TrainState(params=params, count=count, mu=mu, nu=nu,
-                      step=state.step + 1, lr=state.lr)
+    apply_updates (p + u).  Span ``train.adam``."""
+    with telemetry.span("train.adam"):
+        count = state.count + 1
+        c1 = 1 - ADAM_B1 ** count.to(torch.float32)
+        c2 = 1 - ADAM_B2 ** count.to(torch.float32)
+        params, mu, nu = {}, {}, {}
+        for k, p in state.params.items():
+            g = grads[k]
+            mu[k] = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[k]
+            nu[k] = (1 - ADAM_B2) * g ** 2 + ADAM_B2 * state.nu[k]
+            u = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + ADAM_EPS)
+            params[k] = p + u * -state.lr
+        return TrainState(params=params, count=count, mu=mu, nu=nu,
+                          step=state.step + 1, lr=state.lr)
 
 
 def train_step_adam(state: TrainState, scene: SceneData, meta: SceneMeta,
@@ -397,7 +406,9 @@ def train_step_adam(state: TrainState, scene: SceneData, meta: SceneMeta,
                     device=None):
     """One Adam step on the trainable material columns -> (new state,
     loss).  The gradients are all-reduced inside ``loss_and_grads``, so
-    every rank applies the same update to the same state."""
-    loss, grads = loss_and_grads(state.params, scene, meta, camera, cfg,
-                                 target, group=group, device=device)
-    return _adam_update(state, grads), loss
+    every rank applies the same update to the same state.  Span
+    ``train.step``, the root of the step's spans."""
+    with telemetry.span("train.step"):
+        loss, grads = loss_and_grads(state.params, scene, meta, camera, cfg,
+                                     target, group=group, device=device)
+        return _adam_update(state, grads), loss

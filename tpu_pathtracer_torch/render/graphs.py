@@ -15,12 +15,21 @@ with another key releases it before capturing its own.  A kept graph
 holds its static inputs and its memory pool (the saved activations of
 the grad step, the step's or the bounces' tensors) until
 ``release_graphs``.
+
+``CAPTURES`` counts, per slot, the graphs ``keep`` built anew: a first
+call of a configuration, or one whose key changed.  The wavefront and
+lockstep graphs capture on their first tile (the lockstep slot once per
+lane count) inside their own ``graphs.capture`` spans.
 """
 from __future__ import annotations
 
+import collections
+
+from .. import telemetry
 from ..scene.types import tensors_of
 
 _KEPT: dict = {}    # slot -> (key, graph)
+CAPTURES = collections.Counter()    # slot -> graphs built by ``keep``
 
 
 def shapes_of(x) -> tuple:
@@ -36,7 +45,9 @@ def keep(slot: str, key, build):
     if kept is not None and kept[0] == key:
         return kept[1]
     release_graphs(slot)
-    graph = build()
+    CAPTURES[slot] += 1
+    with telemetry.span("graphs.capture", slot=slot):
+        graph = build()
     _KEPT[slot] = key, graph
     return graph
 

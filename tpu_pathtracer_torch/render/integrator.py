@@ -57,6 +57,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import telemetry
 from ..device import resolve_device
 from ..ops import cuda_trace, trace
 from ..scene.types import check_ported, tensors_of
@@ -106,6 +107,8 @@ class RenderConfig:
 class RenderStats(NamedTuple):
     n_rays: int      # traced rays: camera + continuation + NEE shadow rays
     n_steps: int     # wavefront steps run (each traces once, NEE once)
+    n_closest: int   # of n_rays, the closest-hit (camera, continuation)
+    n_shadow: int    # of n_rays, the NEE shadow rays (any hit)
 
 
 PATH_STRATEGIES = ("pt", "nee", "mis")
@@ -375,8 +378,8 @@ class _SampleGraph:
     the per-device tables; its result is kept and its launches count as
     any sample's), then the sample is captured.  The capture launches
     nothing; each replay adds the wrappers' counts of the capture to
-    ``cuda_trace.LAUNCHES``.  ``release`` frees the graph and its memory
-    pool."""
+    ``cuda_trace.LAUNCHES`` and ``LANES``.  ``release`` frees the graph and
+    its memory pool."""
 
     def __init__(self, scene, meta, camera, cfg, sampler, px, sample_idx,
                  accum):
@@ -404,7 +407,7 @@ class _SampleGraph:
                 sample()
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with cuda_trace.captured_launches() as self.launches:
+            with cuda_trace.captured_launches() as self.recorded:
                 with torch.cuda.graph(self.graph):
                     sample()
 
@@ -417,7 +420,7 @@ class _SampleGraph:
     def replay(self, sample_idx: int) -> None:
         self.sample.fill_(sample_idx)
         self.graph.replay()
-        cuda_trace.LAUNCHES.update(self.launches)
+        cuda_trace.count_replay(self.recorded)
 
     def release(self) -> None:
         self.graph.reset()
@@ -459,9 +462,10 @@ class _SampleGraphs(_KeptScene):
         graph = self.by_lanes.get(px.shape[0])
         if graph is None:
             meta, camera, cfg, sampler = self.args
-            graph = self.by_lanes[px.shape[0]] = _SampleGraph(
-                self.scene, meta, camera, cfg, sampler, px, samples.pop(0),
-                accum)
+            with telemetry.span("graphs.capture", slot="lockstep"):
+                graph = self.by_lanes[px.shape[0]] = _SampleGraph(
+                    self.scene, meta, camera, cfg, sampler, px,
+                    samples.pop(0), accum)
         else:
             graph.load(px, accum)
         for s in samples:
@@ -521,7 +525,8 @@ def _wavefront_init(r: int, spp_start: int, accum):
         thr_emit=s4z(),
         radiance=s4z(),
         accum=V3(accum[:, 0] + 0.0, accum[:, 1] + 0.0, accum[:, 2] + 0.0),
-        n_rays=torch.zeros((), dtype=torch.int64, device=dev),
+        n_closest=torch.zeros((), dtype=torch.int64, device=dev),
+        n_shadow=torch.zeros((), dtype=torch.int64, device=dev),
     )
 
 
@@ -568,7 +573,8 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                                 precise=precise)
     it = make_interaction(scene, hit, ray_o, ray_d)
     valid = it.valid & tracing
-    n_rays = s["n_rays"] + tracing.sum()
+    n_closest = s["n_closest"] + tracing.sum()
+    n_shadow = s["n_shadow"]
 
     # ---- emissive radiance of this hit -----------------------------------
     le = bsdf_mod.emitted_radiance(scene, meta, it, wl)
@@ -627,7 +633,7 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                                       precise=precise)
         radiance = _madd(radiance, nee_it.valid,
                          throughput * nee.contribution * nee.mis_weight)
-        n_rays = n_rays + nee_it.valid.sum()
+        n_shadow = n_shadow + nee_it.valid.sum()
 
     # ---- BSDF-sampled continuation --------------------------------------
     wi = from_frame(frame, ms.wi_t)
@@ -674,7 +680,8 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
         thr_emit=sel(new_tracing, new_thr_emit, thr_emit),
         radiance=radiance,
         accum=accum,
-        n_rays=n_rays,
+        n_closest=n_closest,
+        n_shadow=n_shadow,
     )
 
 
@@ -690,22 +697,26 @@ def _state_leaves(state) -> list:
 
 
 def _tile_done(state, spp_end) -> bool:
-    """Every lane idle with no sample left: the one host read of a chunk."""
-    done = ~state["tracing"] & (state["sample"] + 1 >= spp_end)
-    return bool(done.all())
+    """Every lane idle with no sample left: the one host read of a chunk
+    (span ``wavefront.done_read``: the host waits for the card there)."""
+    with telemetry.span("wavefront.done_read"):
+        done = ~state["tracing"] & (state["sample"] + 1 >= spp_end)
+        return bool(done.all())
 
 
 def _render_tile_eager(scene, meta, camera, cfg, sampler, px, spp_start,
                        spp_end, accum, table):
     """One tile's steps as eager ops, the all-done flag read every
     ``SYNC_EVERY`` steps -> (final state, steps run).  The CPU's path, and
-    on the card the plain version of the captured step's replays."""
+    on the card the plain version of the captured step's replays (each
+    step in a ``wavefront.replay`` span, as a replay is)."""
     state = _wavefront_init(px.shape[0], spp_start, accum)
     n_steps = 0
     while spp_start < spp_end:
         for _ in range(SYNC_EVERY):
-            state = _wavefront_step(scene, meta, camera, cfg, sampler, px,
-                                    spp_end, state, table)
+            with telemetry.span("wavefront.replay"):
+                state = _wavefront_step(scene, meta, camera, cfg, sampler,
+                                        px, spp_end, state, table)
             n_steps += 1
         if _tile_done(state, spp_end):
             break
@@ -723,7 +734,8 @@ class _StepGraph:
     warm-up: it builds the kernels and the sampler's device tables, and
     its launches count as any step's), then the step is captured.  The
     capture launches nothing; each replay adds the wrappers' counts of
-    the capture to ``cuda_trace.LAUNCHES``.  ``load`` starts another tile
+    the capture to ``cuda_trace.LAUNCHES`` and ``LANES`` (span
+    ``wavefront.replay``: the host's launch).  ``load`` starts another tile
     (of this call or a later one, any sample range); ``release`` frees the
     graph and its memory pool."""
 
@@ -747,7 +759,7 @@ class _StepGraph:
             step()
         torch.cuda.current_stream(px.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with cuda_trace.captured_launches() as self.launches:
+        with cuda_trace.captured_launches() as self.recorded:
             with torch.cuda.graph(self.graph):
                 step()
         self.steps = 1          # steps of the current tile run so far
@@ -763,8 +775,9 @@ class _StepGraph:
         self.steps = 0
 
     def replay(self) -> None:
-        self.graph.replay()
-        cuda_trace.LAUNCHES.update(self.launches)
+        with telemetry.span("wavefront.replay"):
+            self.graph.replay()
+        cuda_trace.count_replay(self.recorded)
         self.steps += 1
 
     def release(self) -> None:
@@ -797,8 +810,10 @@ class _WavefrontGraph(_KeptScene):
         ``accum``: the captured step replayed until the tile is done."""
         if self.step is None:
             meta, camera, cfg, sampler = self.args
-            self.step = _StepGraph(self.scene, meta, camera, cfg, sampler,
-                                   px, spp_start, spp_end, accum, self.table)
+            with telemetry.span("graphs.capture", slot="wavefront"):
+                self.step = _StepGraph(self.scene, meta, camera, cfg,
+                                       sampler, px, spp_start, spp_end,
+                                       accum, self.table)
         else:
             self.step.load(px, accum, spp_start, spp_end)
         while not _wavefront_chunk(self.step):
@@ -814,12 +829,13 @@ class _WavefrontGraph(_KeptScene):
 def _wavefront_graph(scene, meta, camera, cfg) -> _WavefrontGraph:
     """The kept wavefront step of this configuration (captured anew, the
     one kept before released, for another), with ``scene``'s values
-    copied in."""
-    key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene))
-    kept = graphs_mod.keep("wavefront", key, lambda: _WavefrontGraph(
-        scene, meta, camera, cfg))
-    kept.load_scene(scene)
-    return kept
+    copied in (span ``graphs.lookup``)."""
+    with telemetry.span("graphs.lookup", slot="wavefront"):
+        key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene))
+        kept = graphs_mod.keep("wavefront", key, lambda: _WavefrontGraph(
+            scene, meta, camera, cfg))
+        kept.load_scene(scene)
+        return kept
 
 
 def _wavefront_chunk(graph: _StepGraph) -> bool:
@@ -859,41 +875,56 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
     """``render_wavefront``'s tile loop -> (film, RenderStats): each tile's
     steps replayed from the kept captured graph (``graphed``, on a CUDA
     device) or run as eager ops (the CPU, and the graph's plain version on
-    the card)."""
-    dev = scene.device
-    spp_end = cfg.spp if spp_end is None else spp_end
-    n_px = cfg.width * cfg.height
-    tile = tile_lanes(cfg)
-    pixel_xy, n_tiles = _padded_pixels(cfg, dev)
-    ai = _padded_accum(accum_init, n_px, n_tiles * tile, dev)
+    the card).  Span ``wavefront.film``, with the call's rays
+    (``n_closest``, ``n_shadow``), steps and the lanes its traversal
+    launches covered (``closest_lanes``, ``any_hit_lanes``); a
+    ``wavefront.tile`` span for each tile."""
+    with telemetry.span("wavefront.film") as film_span:
+        lanes0 = cuda_trace.lanes_by_kind()
+        dev = scene.device
+        spp_end = cfg.spp if spp_end is None else spp_end
+        n_px = cfg.width * cfg.height
+        tile = tile_lanes(cfg)
+        pixel_xy, n_tiles = _padded_pixels(cfg, dev)
+        ai = _padded_accum(accum_init, n_px, n_tiles * tile, dev)
 
-    kept = None
-    if graphed and spp_start < spp_end:
-        kept = _wavefront_graph(scene, meta, camera, cfg)
-    else:
-        sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
-                               (cfg.width, cfg.height))
-        table = _spectral_table(scene)
-    outs = []
-    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
-    n_steps = 0
-    for k in range(n_tiles):
-        px_tile = pixel_xy[k * tile:(k + 1) * tile]
-        ai_tile = ai[k * tile:(k + 1) * tile]
-        if kept is None:
-            state, steps = _render_tile_eager(
-                scene, meta, camera, cfg, sampler, px_tile, spp_start,
-                spp_end, ai_tile, table)
+        kept = None
+        if graphed and spp_start < spp_end:
+            kept = _wavefront_graph(scene, meta, camera, cfg)
         else:
-            with torch.no_grad(), torch.cuda.device(dev):
-                graph = kept.run_tile(px_tile, ai_tile, spp_start, spp_end)
-            state, steps = graph.state, graph.steps
-        a = state["accum"]
-        outs.append(torch.stack([a.x, a.y, a.z], -1))
-        n_rays = n_rays + state["n_rays"]
-        n_steps += steps
-    accum = torch.cat(outs, 0)[:n_px]
-    return accum, RenderStats(n_rays=int(n_rays), n_steps=n_steps)
+            sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
+                                   (cfg.width, cfg.height))
+            table = _spectral_table(scene)
+        outs = []
+        n_closest = n_shadow = torch.zeros((), dtype=torch.int64, device=dev)
+        n_steps = 0
+        for k in range(n_tiles):
+            with telemetry.span("wavefront.tile", k=k):
+                px_tile = pixel_xy[k * tile:(k + 1) * tile]
+                ai_tile = ai[k * tile:(k + 1) * tile]
+                if kept is None:
+                    state, steps = _render_tile_eager(
+                        scene, meta, camera, cfg, sampler, px_tile,
+                        spp_start, spp_end, ai_tile, table)
+                else:
+                    with torch.no_grad(), torch.cuda.device(dev):
+                        graph = kept.run_tile(px_tile, ai_tile, spp_start,
+                                              spp_end)
+                    state, steps = graph.state, graph.steps
+                a = state["accum"]
+                outs.append(torch.stack([a.x, a.y, a.z], -1))
+            n_closest = n_closest + state["n_closest"]
+            n_shadow = n_shadow + state["n_shadow"]
+            n_steps += steps
+        accum = torch.cat(outs, 0)[:n_px]
+        # the one host read of the call
+        n_closest, n_shadow = torch.stack([n_closest, n_shadow]).tolist()
+        lanes = cuda_trace.lanes_by_kind()
+        film_span.set(n_closest=n_closest, n_shadow=n_shadow,
+                      n_steps=n_steps, closest_lanes=lanes[0] - lanes0[0],
+                      any_hit_lanes=lanes[1] - lanes0[1])
+    return accum, RenderStats(n_rays=n_closest + n_shadow, n_steps=n_steps,
+                              n_closest=n_closest, n_shadow=n_shadow)
 
 
 def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,

@@ -17,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import resolve_device
 from . import film as film_mod
 from .integrator import RenderConfig, render_accum
@@ -58,7 +59,8 @@ def render_progressive(scene, meta, camera, cfg: RenderConfig,
     Returns the display-encoded (H, W, 3) image as numpy.  If
     ``checkpoint_path`` exists and holds this render's config, resumes
     from it.  ``on_chunk(state)`` is called after each chunk.  device:
-    None renders on the GPU (raising if there is none)."""
+    None renders on the GPU (raising if there is none).  Each chunk, its
+    film's copies and its checkpoint are one ``progressive.pass`` span."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     key = _cfg_key(cfg)
@@ -74,12 +76,15 @@ def render_progressive(scene, meta, camera, cfg: RenderConfig,
 
     while state.spp_done < cfg.spp:
         end = min(state.spp_done + chunk_spp, cfg.spp)
-        state.accum = render_accum(
-            scene, meta, camera, cfg, spp_start=state.spp_done, spp_end=end,
-            accum_init=torch.from_numpy(state.accum)).cpu().numpy()
-        state.spp_done = end
-        if checkpoint_path:
-            state.save(checkpoint_path)
+        with telemetry.span("progressive.pass", spp_start=state.spp_done,
+                            spp_end=end):
+            state.accum = render_accum(
+                scene, meta, camera, cfg, spp_start=state.spp_done,
+                spp_end=end,
+                accum_init=torch.from_numpy(state.accum)).cpu().numpy()
+            state.spp_done = end
+            if checkpoint_path:
+                state.save(checkpoint_path)
         if on_chunk:
             on_chunk(state)
 
