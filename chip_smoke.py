@@ -156,20 +156,40 @@ line per phase; any failed check raises and the script exits non-zero.
            ``first_call_extra_s`` is its time less a replay's), a replayed
            call (``step_s``), then the eager program and a replay with
            other values of every column.  Gates: each graph call's loss
-           equal to the eager loss of its parameters bit for bit, each
-           gradient column within 1e-5 of the eager column's largest
-           magnitude (the backward accumulates with atomics), the other
+           and gradients equal to the eager ones of its parameters bit for
+           bit (the gathers' backward sums in a fixed order), the other
            parameters' loss different; every gradient value finite, at
            both sets of values; the
            launches of every call exact: K1 (K3 precise) 2 x (1 + 8) = 18
            times and K2 (K2p) 2 x 8 = 16 times, the other pair never; the
            forward alone (no autograd) launches the same, so the backward
-           launches none; a profiled replay traces as many traversal
-           kernels as the capture recorded; ``release_graphs()`` brings the
+           launches none; the gathers' backward kernel (G1,
+           ``gather_rows_grad``) the same number of times every call and
+           never in the forward alone; a profiled replay traces as many
+           traversal kernels as the capture recorded, and the capture
+           recorded G1's launches; ``release_graphs()`` brings the
            memory in use back to its level before the first call.
            Reports each call's seconds and peak device memory, the memory
            the kept graph holds between calls (allocated and reserved),
            and the replay's device ops, device ms and busy share.
+           gather_grad: G1 on the inputs of every gather site of one eager
+           fast grad step at that size (upstream gradient, row index and
+           table rows recorded at the kernel's wrapper: 16,384 lanes each,
+           5 rows) and on seeded sets of the largest shipped table (8
+           rows) at 16,384 lanes and of the grid's cap of blocks (600,000
+           lanes), C 1 and 3.  Gates: every result within 1e-6 of each
+           row's sum of |g| against the plain version
+           (``gather_rows_grad_plain``, ``index_add_``) in float64 on the
+           same inputs, and the same bits on a second call; the float32
+           plain version's and the masked sum's errors are read beside
+           the kernel's.  Times, device ms of all the step's sites (queued
+           8 sites at a time): the kernel, the plain version, torch's
+           ``index_put_`` with accumulate (autograd's own backward of
+           ``table[idx]``) and a masked per-row sum in plain PyTorch
+           (``(g[:, None] * (idx[:, None] == arange(M))[..., None])
+           .sum(0)``), beside the byte bound (each lane's index and
+           gradient read once at 3.35 TB/s).  Its
+           row in the final "kernels" line gives these per launch.
            adam: the target is scene 17's linear render (``render_accum``
            / spp) at the same size and spp, NEE at one bounce (where the
            gradient is exact); from the dragon's base and coat tint
@@ -349,6 +369,8 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         if queued_in_time:
             return a.elapsed_time(b) / reps
+        if spin_cycles >= 1 << 34:       # ~10 s of spin: fn waits for the card
+            raise RuntimeError("device_ms: fn synchronises with the host")
         spin_cycles *= 2
 
 
@@ -1109,9 +1131,125 @@ def check_progressive_and_cli(integ, scene, meta, cam):
 GRAD_SIZE, GRAD_SPP, GRAD_DEPTH = 128, 2, 8
 ADAM_LR = 0.02
 # a graph gradient column against the eager one, over the column's largest
-# magnitude: the backward's atomic accumulations (index_put_ with
-# accumulate) add in another order from run to run
-GRAD_GRAPH_TOL = 1e-5
+# magnitude: none, as the backward sums in a fixed order (the gathers'
+# backward kernel of ops.table_grad)
+GRAD_GRAPH_TOL = 0.0
+
+
+# G1, the gathers' backward kernel (ops.table_grad): a result against the
+# plain version in float64, over each row's sum of |g|
+GATHER_TOL = 1e-6
+GATHER_SOURCE = "tpu_pathtracer_torch/csrc/table_grad.cu"
+# seeded sets: (rows, channels, lanes); 8 rows is the largest shipped
+# table (scenes 7, 12, 14), 600,000 lanes fill the grid's cap of blocks
+GATHER_SETS = tuple((rows, c, n) for rows, n in ((8, 16384), (8, 600_000))
+                    for c in (1, 3))
+
+
+def masked_row_sum(grad_out, idx, rows):
+    """The gathers' backward as a masked per-row sum in plain PyTorch: an
+    (N, rows, C) product summed over the lanes (timed beside the kernel)."""
+    hit = idx[:, None] == torch.arange(rows, device=idx.device)
+    if grad_out.dim() == 1:
+        return (grad_out[:, None] * hit).sum(0)
+    return (grad_out[:, None] * hit[..., None]).sum(0)
+
+
+def check_gather_grad(step, dev) -> dict:
+    """The train phase's gather_grad: G1 on the sites of one grad step
+    (``step()``, eager) and on the seeded ``GATHER_SETS``, each against the
+    plain version in float64; the step's sites timed with the kernel, the
+    plain version, ``index_put_`` and ``masked_row_sum``.  Returns G1's
+    row of the final "kernels" line (ms a launch; launches a grad step)."""
+    from tpu_pathtracer_torch.ops import table_grad
+
+    sites = []
+    kernel = table_grad.gather_rows_grad
+
+    def recorder(grad_out, idx, rows):
+        sites.append((grad_out.detach().clone(), idx.clone(), rows))
+        return kernel(grad_out, idx, rows)
+
+    table_grad.gather_rows_grad = recorder
+    try:
+        step()
+    finally:
+        table_grad.gather_rows_grad = kernel
+    torch.cuda.synchronize()
+    n_step = len(sites)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    for rows, c, n in GATHER_SETS:
+        idx = torch.randint(0, rows, (n,), generator=gen, device=dev)
+        g = torch.randn((n, c) if c > 1 else (n,), generator=gen, device=dev)
+        sites.append((g, idx, rows))
+
+    def index_put(g, idx, rows):
+        # as autograd's backward of table[idx] calls it: unsafe, so that no
+        # range check reads the indices back to the host
+        return torch.ops.aten._index_put_impl_(
+            torch.zeros((rows, *g.shape[1:]), device=dev), (idx,), g,
+            accumulate=True, unsafe=True)
+
+    # each result's error against the plain version in float64, over each
+    # row's sum of |g|: the kernel's gated, the float32 plain version's
+    # (index_add_, float atomics) and the masked sum's read beside it
+    worst = dict(kernel=0.0, plain_float32=0.0, masked_sum=0.0)
+    max_abs_err, failed = 0.0, []
+    for k, (g, idx, rows) in enumerate(sites):
+        got = kernel(g, idx, rows)
+        again = kernel(g, idx, rows)
+        g64 = g.double()
+        want = table_grad.gather_rows_grad_plain(g64, idx, rows)
+        scale = table_grad.gather_rows_grad_plain(g64.abs(), idx, rows)
+        for name, val in (
+                ("kernel", got),
+                ("plain_float32",
+                 table_grad.gather_rows_grad_plain(g, idx, rows)),
+                ("masked_sum", masked_row_sum(g, idx, rows))):
+            err = (val.double() - want).abs()
+            share = float((err / scale.clamp_min(1e-300)).max())
+            worst[name] = max(worst[name], share)
+            if name == "kernel":
+                max_abs_err = max(max_abs_err, float(err.max()))
+                if not bool((err <= GATHER_TOL * scale).all()):
+                    failed.append((k, tuple(g.shape), rows, share))
+        if not torch.equal(got, again):
+            failed.append((k, "second call differs"))
+
+    step_sites = sites[:n_step]
+
+    def step_ms(fn):
+        """Device ms of fn on every site of the step: the sites in chunks,
+        so that a batch stays well inside the card's queue of pending
+        launches (``index_put_`` launches ~18 kernels a call)."""
+        chunks = [step_sites[k:k + 8] for k in range(0, n_step, 8)]
+        return sum(device_ms(lambda c=c: [fn(*site) for site in c], 3)
+                   for c in chunks)
+
+    times = {name: step_ms(fn) for name, fn in (
+        ("kernel", kernel), ("plain", table_grad.gather_rows_grad_plain),
+        ("index_put", index_put), ("masked_sum", masked_row_sum))}
+    step_bytes = sum(g.numel() * g.element_size() + idx.numel() * 8
+                     for g, idx, _ in step_sites)
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    shapes = sorted({(tuple(g.shape), rows) for g, _, rows in step_sites})
+    emit("train", sub="gather_grad", scene=17, width=GRAD_SIZE,
+         height=GRAD_SIZE, spp=GRAD_SPP, max_depth=GRAD_DEPTH,
+         step_sites=n_step, step_site_shapes=[list(x) for x in shapes],
+         seeded_sets=[list(x) for x in GATHER_SETS],
+         worst_err_over_row_abs_sum=worst, tol=GATHER_TOL,
+         kernel_max_abs_err=max_abs_err,
+         step_device_ms=times, step_bound_ms=bound_ms,
+         ms_per_launch={k: v / n_step for k, v in times.items()})
+    if not n_step or failed:
+        raise AssertionError(f"gather_grad: {n_step} sites a step; "
+                             f"failed {failed[:8]}")
+    return dict(name=table_grad.KERNEL_NAME, route="cuda",
+                source=GATHER_SOURCE, replaces=None, launches=n_step,
+                max_abs_err=max_abs_err, ms=times["kernel"] / n_step,
+                plain_ms=times["plain"] / n_step,
+                bound_ms=bound_ms / n_step, bound_by="bytes",
+                library_ms=times["index_put"] / n_step)
 
 
 def grad_column_errors(grads, ref) -> dict:
@@ -1129,9 +1267,11 @@ def grad_column_errors(grads, ref) -> dict:
 
 
 def check_train(integ, cuda_trace, scene_at, dev):
-    """The train phase: grad_step (fast and precise), adam, grad_parity.
-    Returns the grad step's launches, fast and precise."""
+    """The train phase: grad_step (fast and precise), gather_grad, adam,
+    grad_parity.  Returns the grad step's launches, fast and precise, and
+    G1's row of the final "kernels" line."""
     from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.ops.table_grad import KERNEL_NAME as GATHER
     from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
 
@@ -1182,6 +1322,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
                 s=time.perf_counter() - t0, loss=float(loss), grads=grads,
                 peak=torch.cuda.max_memory_allocated(),
                 launches={k: cuda_trace.LAUNCHES[k] for k in want},
+                gathers=cuda_trace.LAUNCHES[GATHER],
                 finite=sum(int(torch.isfinite(g).sum())
                            for g in grads.values()))
             del loss, grads
@@ -1196,6 +1337,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
                                    px)
         torch.cuda.synchronize()
         forward = {k: cuda_trace.LAUNCHES[k] for k in want}
+        forward_gathers = cuda_trace.LAUNCHES[GATHER]
         # one replay under the profiler: its kernels and device time
         replay = profile_steps(lambda: graph(params), 1, dev)
         recorded = dict(graphs.kept("grad").recorded.launches)
@@ -1228,6 +1370,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
              held_between_calls_bytes=held,
              allocated_after_release_bytes=released,
              launches={k: r["launches"] for k, r in runs.items()},
+             gather_grad_launches={k: r["gathers"] for k, r in runs.items()},
              forward_launches=forward,
              replay=dict((k, replay[k]) for k in (
                  "step_ms", "profiled_step_ms", "device_ms", "busy_share",
@@ -1255,7 +1398,14 @@ def check_train(integ, cuda_trace, scene_at, dev):
         if runs["graph_other"]["loss"] == runs["graph"]["loss"]:
             raise AssertionError("grad_step: other parameters gave the "
                                  "same loss")
-        if recorded != {k: v for k, v in want.items() if v} \
+        # the gathers' backward: the same launches every call, none in the
+        # forward alone
+        gathers = {r["gathers"] for r in runs.values()}
+        if len(gathers) != 1 or not min(gathers) or forward_gathers:
+            raise AssertionError(f"grad_step: gather backward launches "
+                                 f"{gathers}, {forward_gathers} forward")
+        if recorded != {**{k: v for k, v in want.items() if v},
+                        GATHER: min(gathers)} \
                 or traced != sum(want.values()):
             raise AssertionError(f"grad_step: a replay recorded {recorded}, "
                                  f"its trace {traced} traversal kernels")
@@ -1263,6 +1413,11 @@ def check_train(integ, cuda_trace, scene_at, dev):
             raise AssertionError(f"grad_step: {released} bytes still in use "
                                  "after release_graphs()")
         grad_launches[bool(c.precise)] = runs["graph"]["launches"]
+
+    # ---- gather_grad: G1 on the sites of a fast grad step ------------------
+    gather_row = check_gather_grad(
+        lambda: parallel._loss_and_grads(params, scene, meta, cam, cfg, zero,
+                                         None, dev, graphed=False), dev)
 
     # ---- adam: fit the dragon's colours back to the render as built -------
     # NEE at one bounce, where the loss is a smooth function of every
@@ -1339,7 +1494,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
                                  f"(precise={precise}): loss {l_gpu} vs "
                                  f"{l_cpu}, gradients {rel}")
     parallel.release_graphs()
-    return grad_launches
+    return grad_launches, gather_row
 
 
 def check_consistency(dev):
@@ -1907,7 +2062,7 @@ def main() -> int:
     check_consistency(dev)
 
     # ---- train: the differentiable pass ---------------------------------------
-    check_train(integ, cuda_trace, scene_at, dev)
+    _, gather_row = check_train(integ, cuda_trace, scene_at, dev)
 
     # ---- files: OBJ, EXR and PNG inputs; the scan-sized dragon --------------
     check_files(integ, cuda_trace, tm_mod, eotf_mod, scene_at, cfg)
@@ -1922,7 +2077,7 @@ def main() -> int:
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)
-        for name, row in kernel_rows.items()]}))
+        for name, row in kernel_rows.items()] + [gather_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

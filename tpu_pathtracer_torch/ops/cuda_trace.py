@@ -128,25 +128,28 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def library_path() -> str:
-    with open(KERNEL_SOURCE, "rb") as f:
+def library_path(source: str = KERNEL_SOURCE) -> str:
+    """The library built from the CUDA file ``source``: named after it and
+    keyed on a hash of its text and the flags."""
+    with open(source, "rb") as f:
         src = f.read()
     flags = " ".join(NVCC_FLAGS)
     key = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libtrace_kernels_{key}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{key}.so")
 
 
-def build() -> tuple[str, str]:
-    """Compile the kernels if the library for this source is missing.
+def build(source: str = KERNEL_SOURCE) -> tuple[str, str]:
+    """Compile ``source`` if the library for its text is missing.
     Returns (library path, compiler output; empty when already built)."""
-    path = library_path()
+    path = library_path(source)
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"

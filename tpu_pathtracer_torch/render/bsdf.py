@@ -26,6 +26,7 @@ from ..scene.types import (MAT_CLEARCOAT, MAT_EMISSIVE, MAT_GLASS,
 from ..spectrum import grid as sgrid
 from ..spectrum import rgb2spec
 from ..spectrum.sampled import SampledWavelengths, terminate_secondary
+from ..ops.table_grad import gather_rows
 from ..utils.math import M32
 from ..utils.vec import (Frame, S4, V2, V3, dot3, from_frame, make_frame,
                          normalize3, s4_mean, sel, smap, to_frame)
@@ -78,7 +79,7 @@ def _textured_float(scene, it, value, tex_col):
     """A float parameter: the material's constant, or its gray texture at
     the hit where it has one."""
     mat = it.mat_id.long()
-    value = value[mat]
+    value = gather_rows(value, mat)
     if scene.textures:
         tex_ids = tex_col[mat]
         t = _texture(scene, tex_ids, it.uv, 1, [0.0])[:, 0]
@@ -91,7 +92,7 @@ def _albedo_spectrum(scene, it, wl) -> S4:
     sigmoid coefficients at build; a texel is looked up in the table."""
     m = scene.materials
     mat = it.mat_id.long()
-    coeff = m.base_coeff[mat]
+    coeff = gather_rows(m.base_coeff, mat)
     if scene.textures:
         tex_ids = m.base_tex[mat]
         rgb = _texture(scene, tex_ids, it.uv, 3, [0.0, 0.0, 0.0])
@@ -558,12 +559,13 @@ def _coat_params(scene, it, wl):
     mat = it.mat_id.long()
     thickness = _textured_float(scene, it, m.coat_thickness,
                                 m.coat_thickness_tex)
-    coat_alpha = m.coat_roughness[mat] ** 2
+    coat_alpha = gather_rows(m.coat_roughness, mat) ** 2
     ior = m.coat_eta[mat]
     rr = (ior - 1.0) / (ior + 1.0)
     r2 = rr * rr
     r0 = S4(r2, r2, r2, r2)
-    tint = rgb2spec.sigmoid_poly_s4(m.coat_tint_coeff[mat], wl.lam)
+    tint = rgb2spec.sigmoid_poly_s4(gather_rows(m.coat_tint_coeff, mat),
+                                    wl.lam)
     return thickness, coat_alpha, r0, tint
 
 
@@ -781,7 +783,7 @@ def emission_spectral(scene, meta, mat_id, uv: V2, wl) -> S4:
     m = scene.materials
     mat = mat_id.long()
     row = m.emission_row[mat]
-    scale = m.emission_scale[mat]
+    scale = gather_rows(m.emission_scale, mat)
     le_bank = _bank_eval(scene, torch.clamp(row, min=0), wl)
     le = smap(lambda x: torch.where(row >= 0, x, 0.0), le_bank)
     if meta.has_emission_tex and scene.textures:
