@@ -442,6 +442,39 @@ def test_kept_wavefront_graph_equals_eager(dev, precise, monkeypatch):
     assert torch.cuda.memory_allocated() == in_use
 
 
+def test_env_counts_of_the_kept_graph_equal_the_eager_loops(dev):
+    """Scene 19 (four material kinds under a sky) at 64x48, MIS, 2 spp,
+    depth 6, tiles of 1,024 lanes: the kept step graph's replays give the
+    eager loop's film and every count of ``RenderStats`` (the sky's
+    escapes and NEE lanes, the lanes shaded) and of the ``wavefront.film``
+    span, the traversal launches' lanes included."""
+    from tpu_pathtracer_torch import telemetry
+    from tpu_pathtracer_torch.render import graphs
+    from tpu_pathtracer_torch.render import integrator as tint
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    s, m, c = load_scene(19, 64, 48, table_res=16, device=dev)
+    cfg = tint.RenderConfig(width=64, height=48, spp=2, max_depth=6,
+                            tile_rays=1024)
+    runs = {}
+    graphs.release_graphs()
+    for graphed in (False, True):
+        telemetry.clear()
+        with telemetry.recording():
+            film, stats = tint._wavefront_film(s, m, c, cfg, 0, None, None,
+                                               graphed=graphed)
+        (span,) = [sp for sp in telemetry.spans()
+                   if sp.name == "wavefront.film"]
+        runs[graphed] = film.cpu(), stats, span.attrs
+    graphs.release_graphs()
+    (f0, st0, a0), (f1, st1, a1) = runs[False], runs[True]
+    assert torch.equal(f1, f0) and st1 == st0 and a1 == a0
+    assert 0 < st0.n_escape <= st0.n_closest
+    assert 0 < st0.n_env_nee == st0.n_shadow       # the sky is the one light
+    assert st0.env_lanes == 1024 * st0.n_steps
+    assert 0 < st0.n_shaded <= st0.bsdf_lanes == 4 * st0.env_lanes
+
+
 def _grad_case(dev, precise):
     """Scene 17 at the graph test's size, 2 spp, depth 6: the scene, its
     config, an all-zero target, the parameters, other values of every

@@ -139,7 +139,8 @@ def test_step_copies_nothing_from_the_host(guard, scene, strategy, sampler,
     px = tint._pixel_grid(SIZE, SIZE, "cpu")
     smp = make_sampler(sampler, cfg.seed, cfg.spp, (SIZE, SIZE))
     table = tint._spectral_table(s)
-    state = tint._wavefront_init(tile, 0, torch.zeros((tile, 3)))
+    state = tint._wavefront_init(tile, 0, torch.zeros((tile, 3)),
+                                 tint._counts_of(m, cfg))
     # the warm-up step builds the per-device constant tables
     state = tint._wavefront_step(s, m, c, cfg, smp, px, cfg.spp, state,
                                  table)
@@ -154,7 +155,7 @@ def test_step_copies_nothing_from_the_host(guard, scene, strategy, sampler,
     again = tint._wavefront_step(s, m, c, cfg, smp, px, cfg.spp, state,
                                  table)
     assert int(out["n_closest"]) == int(again["n_closest"]) > 0
-    assert int(out["n_shadow"]) == int(again["n_shadow"])
+    assert all(int(out[k]) == int(again[k]) for k in tint._counts_of(m, cfg))
     assert torch.equal(out["accum"].x, again["accum"].x)
 
 

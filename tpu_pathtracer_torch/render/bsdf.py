@@ -639,6 +639,14 @@ def _clearcoat_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
 # ---------------------------------------------------------------------------
 
 OPAQUE_KINDS = (MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_CLEARCOAT)
+# the kinds ``sample_material`` samples, each of them over every lane
+SAMPLED_KINDS = (MAT_LAMBERT, MAT_METAL, MAT_GLASS, MAT_PLASTIC, MAT_PBR,
+                 MAT_CLEARCOAT)
+
+
+def n_sampled_kinds(meta) -> int:
+    """The material kinds of the scene that ``sample_material`` samples."""
+    return len(set(meta.present_mat_kinds) & set(SAMPLED_KINDS))
 
 
 def _geo_sidedness(it, frame: Frame, wo_t: V3, wi_t: V3):

@@ -60,7 +60,7 @@ import torch
 from .. import telemetry
 from ..device import resolve_device
 from ..ops import cuda_trace, trace
-from ..scene.types import check_ported, tensors_of
+from ..scene.types import LIGHT_ENV, check_ported, tensors_of
 from ..spectrum import grid as sgrid
 from ..spectrum import sampled as swl
 from ..utils.vec import (S4, V3, dot3, from_frame, make_frame, sel, smap,
@@ -109,6 +109,16 @@ class RenderStats(NamedTuple):
     n_steps: int     # wavefront steps run (each traces once, NEE once)
     n_closest: int   # of n_rays, the closest-hit (camera, continuation)
     n_shadow: int    # of n_rays, the NEE shadow rays (any hit)
+    # lanes whose material sample the step uses, and the lanes the
+    # material kinds' samples ran over (kinds x tile lanes x steps)
+    n_shaded: int = 0
+    bsdf_lanes: int = 0
+    # with an environment light (0 without): traced rays that escaped to
+    # it, NEE shadow rays sent to it, and the lanes each of its lookups
+    # ran over (tile lanes x steps)
+    n_escape: int = 0
+    n_env_nee: int = 0
+    env_lanes: int = 0
 
 
 PATH_STRATEGIES = ("pt", "nee", "mis")
@@ -499,7 +509,27 @@ def _sample_graphs(scene, meta, camera, cfg) -> _SampleGraphs:
     return kept
 
 
-def _wavefront_init(r: int, spp_start: int, accum):
+# the device counts a wavefront state carries, each summed over the lanes
+# of every step: closest-hit rays, shadow rays, lanes shaded by a BSDF
+# material; rays that escaped to the environment light and shadow rays
+# sent to it (``_counts_of``: only where the scene has one)
+COUNTS = ("n_closest", "n_shadow", "n_shaded", "n_escape", "n_env_nee")
+
+
+def _counts_of(meta, cfg) -> tuple:
+    """The counts the wavefront state carries for this scene and
+    strategy: a scene without an environment light counts nothing of it."""
+    counts = COUNTS[:3]
+    if meta.has_env:
+        counts += ("n_escape",)
+        if cfg.strategy != "pt" and LIGHT_ENV in meta.light_types:
+            counts += ("n_env_nee",)
+    return counts
+
+
+def _wavefront_init(r: int, spp_start: int, accum, counts=COUNTS[:3]):
+    """A tile's state before its first step, with the device counts
+    ``counts`` at 0 (the step adds to those the state has)."""
     dev = accum.device
 
     def zeros():
@@ -525,8 +555,8 @@ def _wavefront_init(r: int, spp_start: int, accum):
         thr_emit=s4z(),
         radiance=s4z(),
         accum=V3(accum[:, 0] + 0.0, accum[:, 1] + 0.0, accum[:, 2] + 0.0),
-        n_closest=torch.zeros((), dtype=torch.int64, device=dev),
-        n_shadow=torch.zeros((), dtype=torch.int64, device=dev),
+        **{k: torch.zeros((), dtype=torch.int64, device=dev)
+           for k in counts},
     )
 
 
@@ -573,8 +603,7 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                                 precise=precise)
     it = make_interaction(scene, hit, ray_o, ray_d)
     valid = it.valid & tracing
-    n_closest = s["n_closest"] + tracing.sum()
-    n_shadow = s["n_shadow"]
+    counted = {"n_closest": tracing}    # the lanes each count adds
 
     # ---- emissive radiance of this hit -----------------------------------
     le = bsdf_mod.emitted_radiance(scene, meta, it, wl)
@@ -604,11 +633,13 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                                                        ray_d)
             w_env = torch.where(prev_spec, 1.0,
                                 lights_mod._balance(prev_pdf, pdf_env))
-        radiance = _madd(radiance, tracing & ~it.valid,
+        counted["n_escape"] = tracing & ~it.valid
+        radiance = _madd(radiance, counted["n_escape"],
                          thr_emit * env_l * w_env)
 
     # ---- continue from this vertex? -------------------------------------
     alive = valid & bsdf_mod.is_bsdf_material(scene, it) & ~last_seg
+    counted["n_shaded"] = alive
 
     frame = make_frame(it.shading_n, it.tangent)
     wo_t = to_frame(frame, it.wo)
@@ -633,7 +664,9 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
                                       precise=precise)
         radiance = _madd(radiance, nee_it.valid,
                          throughput * nee.contribution * nee.mis_weight)
-        n_shadow = n_shadow + nee_it.valid.sum()
+        counted["n_shadow"] = nee_it.valid
+        if nee.to_env is not None:
+            counted["n_env_nee"] = nee.to_env
 
     # ---- BSDF-sampled continuation --------------------------------------
     wi = from_frame(frame, ms.wi_t)
@@ -680,8 +713,8 @@ def _wavefront_step(scene, meta, camera, cfg, sampler, px, spp_end, s,
         thr_emit=sel(new_tracing, new_thr_emit, thr_emit),
         radiance=radiance,
         accum=accum,
-        n_closest=n_closest,
-        n_shadow=n_shadow,
+        **{k: s[k] + counted[k].sum() if k in counted else s[k]
+           for k in COUNTS if k in s},
     )
 
 
@@ -710,7 +743,8 @@ def _render_tile_eager(scene, meta, camera, cfg, sampler, px, spp_start,
     ``SYNC_EVERY`` steps -> (final state, steps run).  The CPU's path, and
     on the card the plain version of the captured step's replays (each
     step in a ``wavefront.replay`` span, as a replay is)."""
-    state = _wavefront_init(px.shape[0], spp_start, accum)
+    state = _wavefront_init(px.shape[0], spp_start, accum,
+                            _counts_of(meta, cfg))
     n_steps = 0
     while spp_start < spp_end:
         for _ in range(SYNC_EVERY):
@@ -744,7 +778,9 @@ class _StepGraph:
         self.px = px.clone()
         self.spp_end = torch.full((), spp_end, dtype=torch.int32,
                                   device=px.device)
-        self.state = _wavefront_init(px.shape[0], spp_start, accum)
+        self.counts = _counts_of(meta, cfg)
+        self.state = _wavefront_init(px.shape[0], spp_start, accum,
+                                     self.counts)
         self.leaves = _state_leaves(self.state)
 
         def step():
@@ -769,7 +805,7 @@ class _StepGraph:
         initial state."""
         self.px.copy_(px)
         self.spp_end.fill_(spp_end)
-        init = _wavefront_init(px.shape[0], spp_start, accum)
+        init = _wavefront_init(px.shape[0], spp_start, accum, self.counts)
         for dst, src in zip(self.leaves, _state_leaves(init)):
             dst.copy_(src)
         self.steps = 0
@@ -877,7 +913,11 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
     device) or run as eager ops (the CPU, and the graph's plain version on
     the card).  Span ``wavefront.film``, with the call's rays
     (``n_closest``, ``n_shadow``), steps and the lanes its traversal
-    launches covered (``closest_lanes``, ``any_hit_lanes``); a
+    launches covered (``closest_lanes``, ``any_hit_lanes``), the lanes
+    shaded by a BSDF material against the lanes the kinds' samples ran
+    over (``n_shaded``, ``bsdf_lanes``) and, with an environment light,
+    the escapes to it and the NEE lanes sent to it against the lanes its
+    lookups ran over (``n_escape``, ``n_env_nee``, ``env_lanes``); a
     ``wavefront.tile`` span for each tile."""
     with telemetry.span("wavefront.film") as film_span:
         lanes0 = cuda_trace.lanes_by_kind()
@@ -896,7 +936,8 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
                                    (cfg.width, cfg.height))
             table = _spectral_table(scene)
         outs = []
-        n_closest = n_shadow = torch.zeros((), dtype=torch.int64, device=dev)
+        names = _counts_of(meta, cfg)
+        sums = [torch.zeros((), dtype=torch.int64, device=dev)] * len(names)
         n_steps = 0
         for k in range(n_tiles):
             with telemetry.span("wavefront.tile", k=k):
@@ -913,18 +954,20 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
                     state, steps = graph.state, graph.steps
                 a = state["accum"]
                 outs.append(torch.stack([a.x, a.y, a.z], -1))
-            n_closest = n_closest + state["n_closest"]
-            n_shadow = n_shadow + state["n_shadow"]
+            sums = [n + state[k] for n, k in zip(sums, names)]
             n_steps += steps
         accum = torch.cat(outs, 0)[:n_px]
         # the one host read of the call
-        n_closest, n_shadow = torch.stack([n_closest, n_shadow]).tolist()
+        counts = dict(zip(names, torch.stack(sums).tolist()))
+        counts["bsdf_lanes"] = bsdf_mod.n_sampled_kinds(meta) * tile * n_steps
+        if meta.has_env:
+            counts["env_lanes"] = tile * n_steps
         lanes = cuda_trace.lanes_by_kind()
-        film_span.set(n_closest=n_closest, n_shadow=n_shadow,
-                      n_steps=n_steps, closest_lanes=lanes[0] - lanes0[0],
-                      any_hit_lanes=lanes[1] - lanes0[1])
-    return accum, RenderStats(n_rays=n_closest + n_shadow, n_steps=n_steps,
-                              n_closest=n_closest, n_shadow=n_shadow)
+        film_span.set(n_steps=n_steps, closest_lanes=lanes[0] - lanes0[0],
+                      any_hit_lanes=lanes[1] - lanes0[1], **counts)
+    return accum, RenderStats(
+        n_rays=counts["n_closest"] + counts["n_shadow"], n_steps=n_steps,
+        **counts)
 
 
 def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,

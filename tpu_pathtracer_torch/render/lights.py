@@ -28,6 +28,9 @@ BIG_T = 3.0e38
 class NeeResult(NamedTuple):
     contribution: S4
     mis_weight: torch.Tensor    # (R,)
+    # (R,) bool: the lanes whose shadow ray goes to the environment light
+    # (picked, and traced); None where the scene has none
+    to_env: torch.Tensor | None = None
 
 
 def _phi_lambda(scene, wl, n_l: int):
@@ -149,6 +152,7 @@ def evaluate_nee(scene, meta, it, frame, wo_t: V3, wl, u_light, u_s,
     light_term = zero4                     # before 1/prob and the BSDF
     pdf_dir = torch.ones_like(u_light)     # direction pdf for MIS
     is_delta = torch.ones_like(any_l)
+    to_env = None
 
     if LIGHT_POINT in types or LIGHT_SPOT in types:
         lp = v3_unstack(lights.position[light_row])
@@ -208,6 +212,7 @@ def evaluate_nee(scene, meta, it, frame, wo_t: V3, wl, u_light, u_s,
                          light_term)
         pdf_dir = torch.where(m, p_dir, pdf_dir)
         is_delta = is_delta & ~m
+        to_env = m & any_l & it.valid
 
     shadow_o = it.position + wi * RAY_EPS_NEE
     occluded = trace.intersect_p_scene(scene, shadow_o, wi, t_max,
@@ -226,7 +231,7 @@ def evaluate_nee(scene, meta, it, frame, wo_t: V3, wl, u_light, u_s,
         w = torch.where(visible, w, 1.0)
     else:
         w = torch.ones_like(u_light)
-    return NeeResult(contribution=contrib, mis_weight=w)
+    return NeeResult(contribution=contrib, mis_weight=w, to_env=to_env)
 
 
 def _balance(pdf_a, pdf_b):

@@ -20,7 +20,8 @@ device idle under a span is the host's work on that layer.
 The counters stay where the work is counted: ``ops.cuda_trace.LAUNCHES``
 and ``LANES`` (launches and lanes per kernel), ``render.graphs.CAPTURES``
 (captures per kept-graph slot) and ``RenderStats`` (closest-hit and
-shadow rays); a ``wavefront.film`` span carries its call's totals.
+shadow rays, lanes shaded, escapes to and NEE lanes sent to the
+environment light); a ``wavefront.film`` span carries its call's totals.
 """
 from __future__ import annotations
 
