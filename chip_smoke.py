@@ -6,6 +6,24 @@ line per phase; any failed check raises and the script exits non-zero.
   env      the card (nvidia-smi name and power limit), torch and CUDA versions
   build    compiles the traversal kernels from csrc/ with nvcc (timed) and
            prints each kernel's registers and stack frame (ptxas -v)
+  sampler  the Z-Sobol draw kernel (``csrc/sampler.cu``, built and timed
+           here; ptxas's registers) against its plain version
+           (``get_1d_plain`` / ``get_2d_plain``, int64 tensor ops) on the
+           ten draw calls of a step (MIS: 1-D dim 0, 2-D dim 1, then at
+           ``base`` = 3 + 10 depth the calls at base, base + 1 (2-D), + 3,
+           + 4, + 5, + 6, + 7 (2-D), + 9): the render cells' wavefront
+           step, the first 262,144 pixels of 800x600 at 64 spp, per-lane
+           int32 samples (some -1) and depths 0-15; the fit's lockstep
+           sample, 128x128 at 2 spp (odd log2_spp), 16,384 lanes, a python
+           int sample and depth 0.  Gate: every draw equal bit for bit.
+           Times, device ms of the ten calls (``device_ms``; the plain
+           version one call at a time, ~500 launches each), beside the
+           bound: the larger of the operands and draws (pixel 8 B, a
+           per-lane sample and dim 4 B each, a draw 4 B) at 3.35 TB/s and
+           the 32-bit integer operations counted in the source at 132 SMs
+           x 64 a clock x 1.98 GHz; registers, local bytes and resident
+           blocks an SM of each kernel.  Its row in the final "kernels"
+           line gives these per launch.
   kernels  scene 17 at 1024x1024 (table_res 64): the closest-hit and any-hit
            kernels, fast (K1, K2) and precise (K3, K2p), against their plain
            PyTorch versions on the card.  Closest hit: camera rays of the
@@ -62,7 +80,8 @@ line per phase; any failed check raises and the script exits non-zero.
            memory in use back at its level before the first graph call
            after ``release_graphs()``, and in a profiled replay the
            traversal kernels of the trace equal the launches the capture
-           recorded.  Reports ms a step, Mray/s and peak device memory of
+           recorded, which holds ten Z-Sobol draw launches (MIS: ten draw
+           calls a step).  Reports ms a step, Mray/s and peak device memory of
            each way, the capture's seconds, the memory allocated and
            reserved before, with the kept graph and after its release,
            and a steady step of each (device ms, busy share, device ops;
@@ -167,7 +186,8 @@ line per phase; any failed check raises and the script exits non-zero.
            ``gather_rows_grad``) the same number of times every call and
            never in the forward alone; a profiled replay traces as many
            traversal kernels as the capture recorded, and the capture
-           recorded G1's launches; ``release_graphs()`` brings the
+           recorded G1's launches and one Z-Sobol draw launch for each of
+           the 2 x (2 + 8 x 8) draw calls; ``release_graphs()`` brings the
            memory in use back to its level before the first call.
            Reports each call's seconds and peak device memory, the memory
            the kept graph holds between calls (allocated and reserved),
@@ -829,7 +849,9 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
     tile, after 2-5 timed without the profiler) by
     ``profile_steps``: device ms, busy share, device ops.
     Gate: in a profiled replay the traversal kernels of the trace equal
-    the launches the capture recorded."""
+    the launches the capture recorded, which are the step's kernels once
+    each and its ten Z-Sobol draw calls (MIS) ten draw launches."""
+    from tpu_pathtracer_torch.render.sampler import KERNEL_NAME as DRAW
     from tpu_pathtracer_torch.render.sampler import make_sampler
 
     dev = scene.device
@@ -874,7 +896,8 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
              capture_s=capture_s, recorded_launches_per_replay=recorded,
              traced_kernels_per_replay=traced, steady_step=steady,
              top_kernels_replayed=replay["top_kernels"][:6])
-        if recorded != {k: 1 for k in names} or traced != len(names):
+        if recorded != {**{k: 1 for k in names}, DRAW: 10} \
+                or traced != len(names):
             raise AssertionError(f"graph: the capture recorded {recorded}, "
                                  f"a profiled replay traced {traced} "
                                  "traversal kernels")
@@ -1252,6 +1275,123 @@ def check_gather_grad(step, dev) -> dict:
                 library_ms=times["index_put"] / n_step)
 
 
+SAMPLER_SOURCE = "tpu_pathtracer_torch/csrc/sampler.cu"
+# (name, spp, film, lanes, per-lane samples and depths): the render cells'
+# wavefront step and the fit's lockstep sample
+SAMPLER_SETS = (("step", 64, (800, 600), 262_144, True),
+                ("fit", 2, (128, 128), 16_384, False))
+# 32-bit integer operations of a lane's draw, counted in csrc/sampler.cu's
+# source (not its machine code): a base-4 digit 35 (the digit's shift and
+# and 2, the higher bits' test and shift 2, the xor with the dim hash 1,
+# fmix32 8, the >> 24 and the % 24 5, the code word's pick 4, the code's
+# shift amount 4 and 64-bit shift 3, its and, shift and or 3, the loop 3);
+# the rest of a 1-D draw 56 (two spread16 of 13, the Morton index 4, the
+# dim hash 1, the scrambler seed 11, the Owen scramble with its reversal
+# 11, the float 3; the odd-spp flip left out); a 2-D draw's second value
+# 38 (its seed 9, the matrix-1 product 15, its scramble 11, its float 3)
+ZSOBOL_OPS_PER_DIGIT = 35
+ZSOBOL_OPS_1D = 56
+ZSOBOL_OPS_2D_EXTRA = 38
+# H100 SXM: 132 SMs, 64 32-bit integer operations an SM a clock, 1.98 GHz
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+
+
+def step_draw_calls(base):
+    """The (2-D, dimension) of the ten draw calls of a MIS step whose
+    bounce window starts at ``base``."""
+    return ((False, 0), (True, 1), (False, base), (True, base + 1),
+            (False, base + 3), (False, base + 4), (False, base + 5),
+            (False, base + 6), (True, base + 7), (False, base + 9))
+
+
+def check_sampler(integ, dev) -> dict:
+    """The sampler phase: the draw kernel built from its source (timed,
+    ptxas's lines), then on each of ``SAMPLER_SETS`` the ten draw calls of
+    a step against the plain version, bit for bit, and timed with it
+    beside the bound.  Returns the kernel's row of the final "kernels"
+    line (per launch, at the step's lanes)."""
+    from tpu_pathtracer_torch.ops import cuda_trace
+    from tpu_pathtracer_torch.render import sampler as tsam
+
+    lib_path = cuda_trace.library_path(tsam.KERNEL_SOURCE)
+    if os.path.exists(lib_path):
+        os.remove(lib_path)           # build from this checkout's source
+    t0 = time.perf_counter()
+    _, log = cuda_trace.build(tsam.KERNEL_SOURCE)
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "Compiling entry" in ln or "registers" in ln
+             or "stack frame" in ln]
+    emit("sampler", sub="build", seconds=time.perf_counter() - t0,
+         ptxas=ptxas)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    row = None
+    for name, spp, (w, h), n, per_lane in SAMPLER_SETS:
+        sm = tsam.ZSobolSampler(seed=0, spp=spp, resolution=(w, h))
+        px = integ._pixel_grid(w, h, dev)[:n]
+        if per_lane:
+            sample = torch.randint(-1, spp, (n,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            base = 3 + 10 * torch.randint(0, 16, (n,), generator=gen,
+                                          device=dev, dtype=torch.int32)
+        else:
+            sample, base = 1, 3
+        calls = [(two_d, sample, dim) for two_d, dim in step_draw_calls(base)]
+
+        def kernel_step():
+            return [(sm.get_2d if t else sm.get_1d)(px, s, d)
+                    for t, s, d in calls]
+
+        def plain(t, s, d):
+            return (sm.get_2d_plain if t else sm.get_1d_plain)(px, s, d)
+
+        cuda_trace.reset_launch_counts()
+        got = kernel_step()
+        torch.cuda.synchronize()
+        launches = cuda_trace.LAUNCHES[tsam.KERNEL_NAME]
+        failed = []
+        for k, ((t, s, d), g) in enumerate(zip(calls, got)):
+            want = plain(t, s, d)
+            for a, b in ((g.x, want.x), (g.y, want.y)) if t else ((g, want),):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    failed.append((k, int((a != b).sum())))
+        del got
+        kernel_ms = device_ms(kernel_step, 20)
+        plain_ms = sum(device_ms(lambda c=c: plain(*c), 1) for c in calls)
+        n_2d = sum(t for t, _, _ in calls)
+        in_bytes = 8 + (8 if per_lane else 0)
+        step_bytes = n * sum(in_bytes + (8 if t else 4) for t, _, _ in calls)
+        step_ops = n * sum(ZSOBOL_OPS_1D + ZSOBOL_OPS_PER_DIGIT
+                           * sm.n_base4_digits + ZSOBOL_OPS_2D_EXTRA * t
+                           for t, _, _ in calls)
+        bytes_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = step_ops / PEAK_INT32_OPS * 1e3
+        info = {("2d" if t else "1d"): tsam.launch_info(t, n)
+                for t in (False, True)}
+        emit("sampler", sub=name, spp=spp, width=w, height=h, lanes=n,
+             log2_spp=sm.log2_spp, n_base4_digits=sm.n_base4_digits,
+             per_lane=per_lane, calls=len(calls), calls_2d=n_2d,
+             launches=launches, bit_equal=not failed,
+             step_device_ms=dict(kernel=kernel_ms, plain=plain_ms),
+             step_bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+             int_ops_ms=ops_ms, kernel_over_bound=kernel_ms
+             / max(bytes_ms, ops_ms), plain_over_kernel=plain_ms / kernel_ms,
+             launch_info=info)
+        if failed or launches != len(calls):
+            raise AssertionError(f"sampler {name}: {launches} launches for "
+                                 f"{len(calls)} calls; draws that differ "
+                                 f"(call, lanes): {failed}")
+        if row is None:
+            row = dict(name=tsam.KERNEL_NAME, route="cuda",
+                       source=SAMPLER_SOURCE, replaces=None,
+                       launches=len(calls), max_abs_err=0.0,
+                       ms=kernel_ms / len(calls),
+                       plain_ms=plain_ms / len(calls),
+                       bound_ms=max(bytes_ms, ops_ms) / len(calls),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "int32 ops",
+                       library_ms=None)
+    return row
+
+
 def grad_column_errors(grads, ref) -> dict:
     """Each gradient column's largest difference from ``ref``'s over that
     column's largest magnitude in ``ref``; infinite where either column
@@ -1273,6 +1413,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
     from tpu_pathtracer_torch import parallel
     from tpu_pathtracer_torch.ops.table_grad import KERNEL_NAME as GATHER
     from tpu_pathtracer_torch.render import graphs
+    from tpu_pathtracer_torch.render.sampler import KERNEL_NAME as DRAW
     from tpu_pathtracer_torch.scene.types import MAT_CLEARCOAT
 
     size = GRAD_SIZE
@@ -1404,8 +1545,11 @@ def check_train(integ, cuda_trace, scene_at, dev):
         if len(gathers) != 1 or not min(gathers) or forward_gathers:
             raise AssertionError(f"grad_step: gather backward launches "
                                  f"{gathers}, {forward_gathers} forward")
+        # MIS: two draw calls for the camera ray and eight a bounce, each
+        # one launch, every bounce captured
+        draws = c.spp * (2 + 8 * c.max_depth)
         if recorded != {**{k: v for k, v in want.items() if v},
-                        GATHER: min(gathers)} \
+                        GATHER: min(gathers), DRAW: draws} \
                 or traced != sum(want.values()):
             raise AssertionError(f"grad_step: a replay recorded {recorded}, "
                                  f"its trace {traced} traversal kernels")
@@ -1862,6 +2006,9 @@ def main() -> int:
              or "stack frame" in ln]
     emit("build", seconds=build_s, ptxas=ptxas)
 
+    # ---- sampler: the Z-Sobol draw kernel against its plain version ----------
+    sampler_row = check_sampler(integ, dev)
+
     # ---- kernels ------------------------------------------------------------
     W = H = 1024
     built = {}
@@ -2077,7 +2224,7 @@ def main() -> int:
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)
-        for name, row in kernel_rows.items()] + [gather_row]}))
+        for name, row in kernel_rows.items()] + [gather_row, sampler_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

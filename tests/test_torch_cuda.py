@@ -13,6 +13,7 @@ import torch
 
 from tpu_pathtracer_torch.ops import cuda_trace
 from tpu_pathtracer_torch.ops import trace as ttrace
+from tpu_pathtracer_torch.render import sampler as tsam
 from tpu_pathtracer_torch.scene import bvh as tbvh
 from tpu_pathtracer_torch.scene import mesh as tmesh
 from tpu_pathtracer_torch.utils.vec import V3
@@ -277,6 +278,48 @@ def test_wrapper_checks_inputs(dragon, dev):
                                       rays)
 
 
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# (spp, resolution): the render cells' step, the fit's odd log2_spp, and
+# digits whose shift passes 32 bits (a 70,000-pixel-wide film at 8 spp)
+@pytest.mark.parametrize("spp,res", [(64, (800, 600)), (2, (128, 128)),
+                                     (8, (70000, 3))],
+                         ids=["render", "fit", "wide"])
+def test_zsobol_draw_kernel_matches_plain(dev, spp, res):
+    """The draw kernel against the int64 plain version on the card, bit for
+    bit, on 262,144 lanes: per-lane int32 samples (some -1, a lane that
+    never regenerated) and dims up to 3 + 10 x 15 + 9, int64 pixels, a 0-d
+    int64 sample (the lockstep graph's) and python-int samples and dims,
+    negative ones included; each call is one launch of its lanes."""
+    n = 262_144
+    gen = torch.Generator(device=dev).manual_seed(spp + res[0])
+    px = torch.stack([torch.randint(0, res[0], (n,), generator=gen,
+                                    device=dev),
+                      torch.randint(0, res[1], (n,), generator=gen,
+                                    device=dev)], 1).to(torch.int32)
+    sample = torch.randint(-1, spp, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    dim = torch.randint(0, 3 + 10 * 15 + 10, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sm = tsam.ZSobolSampler(seed=2 ** 31 + 17, spp=spp, resolution=res)
+    cases = [(px, sample, dim), (px.long(), sample.long(), dim),
+             (px, torch.tensor(spp - 1, device=dev), dim),
+             (px, torch.tensor(-1, device=dev), 0), (px, -1, dim),
+             (px, spp - 1, 1), (px, sample, -3)]
+    cuda_trace.reset_launch_counts()
+    for k, (p, s, d) in enumerate(cases):
+        assert _bits_equal(sm.get_1d(p, s, d), sm.get_1d_plain(p, s, d)), k
+        got, want = sm.get_2d(p, s, d), sm.get_2d_plain(p, s, d)
+        assert _bits_equal(got.x, want.x) and _bits_equal(got.y, want.y), k
+    torch.cuda.synchronize()
+    assert cuda_trace.LAUNCHES[tsam.KERNEL_NAME] == 2 * len(cases)
+    assert cuda_trace.LANES[tsam.KERNEL_NAME] == 2 * len(cases) * n
+    with pytest.raises(ValueError):
+        sm.get_1d(px, sample.cpu(), dim)
+
+
 @pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
 def test_loss_and_grads_on_card_match_cpu(dev, precise):
     """The differentiable pass on the card against the CPU's plain
@@ -319,8 +362,9 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
     """``render_wavefront`` on the card replays one captured step: scene 17
     at 64x48, 2 spp, depth 6, in three tiles of 1,024 lanes (the last one
     padded).  Its film equals the eager step loop's bit for bit, with the
-    same rays, steps and kernel launches (each kernel once a step); it
-    never runs the eager loop; a second call replays the kept graph and
+    same rays, steps and kernel launches (each traversal kernel once a
+    step, the Z-Sobol draw kernel ten times: MIS makes ten draw calls a
+    step); it never runs the eager loop; a second call replays the kept graph and
     does not raise the peak device memory, and after ``release_graphs()``
     the memory in use is what it was before the first call."""
     from tpu_pathtracer_torch.render import graphs
@@ -343,7 +387,8 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
     assert st1 == st0 and st0.n_steps >= 3 * tint.SYNC_EVERY
     names = (("closest_hit_precise", "any_hit_precise") if precise
              else ("closest_hit", "any_hit"))
-    assert l1 == l0 == {k: st0.n_steps for k in names}
+    assert l1 == l0 == {**{k: st0.n_steps for k in names},
+                        tsam.KERNEL_NAME: 10 * st0.n_steps}
 
     def no_eager(*a, **k):
         raise AssertionError("the card ran the eager step loop")

@@ -33,7 +33,8 @@ def _inputs(seed, n, res, max_sample, max_dim):
 
 
 @pytest.mark.parametrize("spp,res", [(4, (1024, 1024)), (2, (32, 24)),
-                                     (1, (64, 48)), (64, (1024, 1024))])
+                                     (1, (64, 48)), (64, (1024, 1024)),
+                                     (64, (800, 600)), (2, (128, 128))])
 def test_zsobol_per_lane_bit_exact(spp, res):
     """get_1d / get_2d with per-lane sample and dim arrays."""
     px, sample, dim = _inputs(spp, 4096, res, spp, 170)
@@ -79,6 +80,107 @@ def test_zsobol_negative_sample_index_matches():
     t = ts.get_1d(torch.from_numpy(px), torch.from_numpy(sample),
                   torch.from_numpy(dim))
     assert np.array_equal(_bits(j), _bits(t.numpy()))
+
+
+def _kernel_reads(op, n):
+    """The uint32 words lanes 0..n-1 read from the draw kernel's operand
+    ``op``: its pointer arithmetic (the tensor's first element, a stride in
+    32-bit words) done on the CPU tensor's storage."""
+    if op.tensor is None:
+        return torch.full((n,), op.value, dtype=torch.int64)
+    words = torch.empty(0, dtype=torch.int32).set_(op.tensor.untyped_storage())
+    first = op.tensor.storage_offset() * op.tensor.element_size() // 4
+    return words[first + torch.arange(n) * op.stride].long() & 0xFFFFFFFF
+
+
+def _operand_form(form, values):
+    """``values`` ((n,) int64) in one of the forms the call sites pass."""
+    n = values.shape[0]
+    scalar = int(values[0])
+    return {
+        "int": scalar,
+        "negative_int": -scalar - 1,
+        "0d_int32": torch.tensor(scalar, dtype=torch.int32),
+        "0d_int64": torch.tensor(-scalar - 1, dtype=torch.int64),
+        "one_int64": torch.tensor([scalar], dtype=torch.int64),
+        "lanes_int32": values.to(torch.int32),
+        "lanes_int64": values,
+        "lanes_negative": -values - 1,
+        "lanes_strided_int64": torch.stack([values, -values], 1)[:, 0],
+        "lanes_sliced_int32": torch.cat([values, values]).to(
+            torch.int32)[n // 2:n // 2 + n],
+    }[form]
+
+
+_OPERAND_FORMS = ("int", "negative_int", "0d_int32", "0d_int64", "one_int64",
+                  "lanes_int32", "lanes_int64", "lanes_negative",
+                  "lanes_strided_int64", "lanes_sliced_int32")
+
+
+@pytest.mark.parametrize("form", _OPERAND_FORMS)
+def test_zsobol_kernel_operands_read_the_plain_lanes(form):
+    """Every form of sample index and dimension the call sites pass, and
+    int32 / int64 / strided pixels, as the draw kernel's operands: read
+    with the kernel's pointer arithmetic they are the plain version's
+    32-bit lanes, and the draws of those lanes are the draws of the form,
+    at log2_spp even and odd (64 and 2 spp, 800x600 and 128x128).  A CPU
+    call launches nothing."""
+    from tpu_pathtracer_torch.ops import cuda_trace
+    cuda_trace.reset_launch_counts()
+    for spp, res in ((64, (800, 600)), (2, (128, 128)), (2, (800, 600)),
+                     (64, (128, 128))):
+        px, sample, dim = _inputs(spp + res[0], 2048, res, spp, 163)
+        n = px.shape[0]
+        ts = tsam.ZSobolSampler(seed=2 ** 33 + 5, spp=spp, resolution=res)
+        s = _operand_form(form, torch.from_numpy(sample).long())
+        d = _operand_form(form, torch.from_numpy(dim).long())
+        like = torch.zeros(n, dtype=torch.int64)
+        s_op, d_op = tsam.operand(s, n, like.device), tsam.operand(d, n,
+                                                                    like.device)
+        s_lanes, d_lanes = _kernel_reads(s_op, n), _kernel_reads(d_op, n)
+        assert torch.equal(s_lanes, ts._lanes(s, like))
+        assert torch.equal(d_lanes, ts._lanes(d, like))
+        for pix in (torch.from_numpy(px), torch.from_numpy(px).long(),
+                    torch.from_numpy(px).T.contiguous().T,
+                    torch.from_numpy(np.repeat(px, 2, 0)).long()[::2]):
+            row, col = tsam.pixel_strides(pix)
+            x = _kernel_reads(tsam.Operand(pix, row, 0), n)
+            y = _kernel_reads(tsam.Operand(pix[:, 1:], row, 0), n)
+            assert col == (pix[:, 1:].storage_offset()
+                           - pix.storage_offset()) * pix.element_size() // 4
+            assert torch.equal(x, pix[:, 0].long() & 0xFFFFFFFF)
+            assert torch.equal(y, pix[:, 1].long() & 0xFFFFFFFF)
+            a = ts.get_1d(pix, s, d)
+            b = ts.get_1d_plain(torch.stack([x, y], 1), s_lanes, d_lanes)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            a2 = ts.get_2d(pix, s, d)
+            b2 = ts.get_2d_plain(torch.stack([x, y], 1), s_lanes, d_lanes)
+            assert torch.equal(a2.x.view(torch.int32), b2.x.view(torch.int32))
+            assert torch.equal(a2.y.view(torch.int32), b2.y.view(torch.int32))
+    assert cuda_trace.LAUNCHES[tsam.KERNEL_NAME] == 0
+    assert cuda_trace.LANES[tsam.KERNEL_NAME] == 0
+
+
+def test_zsobol_kernel_arguments():
+    """The packed permutation codes unpack to the 24 permutations; operands
+    of another dtype, shape or device, and pixels not (R, 2), are refused."""
+    for p in range(24):
+        code = (tsam.PACKED_PERM_CODES[p // 8] >> (8 * (p % 8))) & 0xFF
+        assert [(code >> (2 * d)) & 3 for d in range(4)] == \
+            list(tsam._PERMUTATIONS[p])
+    cpu = torch.device("cpu")
+    with pytest.raises(TypeError):
+        tsam.operand(torch.zeros(4, dtype=torch.float32), 4, cpu)
+    with pytest.raises(TypeError):
+        tsam.operand(torch.zeros(4, dtype=torch.int16), 4, cpu)
+    with pytest.raises(ValueError):
+        tsam.operand(torch.zeros(3, dtype=torch.int32), 4, cpu)
+    with pytest.raises(ValueError):
+        tsam.operand(torch.zeros(4, dtype=torch.int32), 4, torch.device("meta"))
+    with pytest.raises(ValueError):
+        tsam.pixel_strides(torch.zeros(4, 3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        tsam.pixel_strides(torch.zeros(4, 2, dtype=torch.float32))
 
 
 @pytest.mark.parametrize("seed", [0, 7])

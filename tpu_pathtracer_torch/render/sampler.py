@@ -6,15 +6,26 @@ JAX package computes in uint32; PyTorch has no unsigned 32-bit arithmetic,
 so values live in int64 tensors and are masked to 32 bits (``M32``) after
 every multiply, add and left shift.  A 32x32-bit product can wrap the
 int64, but its low 32 bits are still right once masked.
+
+On a CUDA tensor a Z-Sobol draw call (``ZSobolSampler.get_1d``,
+``get_2d``) is one launch of the kernel of ``csrc/sampler.cu`` (see its
+header), built like the traversal kernels (``cuda_trace.build``) and
+counted in ``cuda_trace.LAUNCHES`` and ``LANES`` under ``zsobol_draw``; on
+a CPU tensor it is the int64 code, ``get_1d_plain`` / ``get_2d_plain``, of
+which the kernel's draws are bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import os
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops import cuda_trace
 from ..utils.math import M32, morton2
 
 # ---------------------------------------------------------------------------
@@ -135,6 +146,104 @@ def _u32_to_unit_float(v):
 
 
 # ---------------------------------------------------------------------------
+# The draw kernel (csrc/sampler.cu)
+# ---------------------------------------------------------------------------
+
+KERNEL_SOURCE = os.path.join(os.path.dirname(cuda_trace.KERNEL_SOURCE),
+                             "sampler.cu")
+KERNEL_NAME = "zsobol_draw"
+# _PERM_CODES as the kernel takes them: code p at bits 8 (p % 8) of word
+# p // 8
+PACKED_PERM_CODES = tuple(
+    sum(int(c) << (8 * k) for k, c in enumerate(_PERM_CODES[w:w + 8]))
+    for w in range(0, 24, 8))
+
+_LIB = None
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(cuda_trace.build(KERNEL_SOURCE)[0])
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        ll, ull = ctypes.c_longlong, ctypes.c_ulonglong
+        lib.launch_zsobol_draw.argtypes = [i, p, ll, ll, p, ll, u, p, ll, u,
+                                           u, i, i, ull, ull, ull, p, p, p]
+        lib.launch_zsobol_draw.restype = i
+        lib.zsobol_draw_launch_info.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.zsobol_draw_launch_info.restype = i
+        _LIB = lib
+    return _LIB
+
+
+class Operand(NamedTuple):
+    """A sample index or dimension as the kernel reads it: lane i reads the
+    32-bit word ``i * stride`` words after ``tensor``'s first element (its
+    low word: an int32, or the low half of an int64), or, where ``tensor``
+    is None, ``value``."""
+    tensor: Optional[torch.Tensor]
+    stride: int
+    value: int
+
+
+def _words(t: torch.Tensor) -> int:
+    """32-bit words an element of the integer tensor ``t``."""
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"the draw kernel takes int32 or int64, got {t.dtype}")
+    return 2 if t.dtype == torch.int64 else 1
+
+
+def operand(v, n: int, device: torch.device) -> Operand:
+    """``v`` (a python integer, or an integer tensor on ``device`` of shape
+    (), (1,) or (n,)) as the kernel's operand over n lanes: each lane
+    reads the low 32 bits of its value, as ``_lanes`` keeps them."""
+    if not isinstance(v, torch.Tensor):
+        return Operand(None, 0, int(v) & M32)
+    if v.device != device:
+        raise ValueError(f"operand on {v.device}, pixels on {device}")
+    words = _words(v)
+    if v.dim() == 0 or tuple(v.shape) == (1,):
+        return Operand(v, 0, 0)
+    if tuple(v.shape) != (n,):
+        raise ValueError(f"operand of shape {tuple(v.shape)} for {n} lanes")
+    return Operand(v, v.stride(0) * words, 0)
+
+
+def pixel_strides(pixel_xy: torch.Tensor) -> tuple[int, int]:
+    """32-bit words from one lane's x to the next lane's, and from x to y,
+    of an (R, 2) int32 or int64 ``pixel_xy``."""
+    words = _words(pixel_xy)
+    if pixel_xy.dim() != 2 or pixel_xy.shape[1] != 2:
+        raise ValueError(f"pixel_xy must be (R, 2), got "
+                         f"{tuple(pixel_xy.shape)}")
+    return pixel_xy.stride(0) * words, pixel_xy.stride(1) * words
+
+
+def _plain(pixel_xy: torch.Tensor) -> bool:
+    if pixel_xy.device.type == "cpu":
+        return True
+    if pixel_xy.device.type != "cuda":
+        raise ValueError(f"unsupported device {pixel_xy.device}")
+    return False
+
+
+def _ptr_of(op: Operand):
+    return None if op.tensor is None else op.tensor.data_ptr()
+
+
+def launch_info(two_d: bool, n: int) -> dict:
+    """Registers and local bytes a thread, resident blocks an SM and the
+    grid of a launch of the 1-D or 2-D draw kernel over n lanes on the
+    current card."""
+    out = (ctypes.c_int * 4)()
+    rc = _library().zsobol_draw_launch_info(int(two_d), n, out)
+    if rc != 0:
+        raise RuntimeError(f"zsobol_draw_launch_info: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "grid"),
+                    out))
+
+
+# ---------------------------------------------------------------------------
 # Sampler
 # ---------------------------------------------------------------------------
 
@@ -194,8 +303,48 @@ class ZSobolSampler:
         return v
 
     def get_1d(self, pixel_xy, sample_idx, dim):
-        """pixel_xy: (R, 2) integer pixel coords; sample_idx, dim: scalars
-        or (R,) integers.  Returns (R,) float32 in [0, 1)."""
+        """pixel_xy: (R, 2) integer pixel coords; sample_idx, dim: python
+        integers, 0-d integer tensors or (R,) integers.  Returns (R,)
+        float32 in [0, 1): the plain version for a CPU tensor, else the
+        kernel (int32 or int64 tensors on the pixels' device)."""
+        if _plain(pixel_xy):
+            return self.get_1d_plain(pixel_xy, sample_idx, dim)
+        return self._draw(pixel_xy, sample_idx, dim, two_d=False)
+
+    def get_2d(self, pixel_xy, sample_idx, dim):
+        """Two draws, dimensions ``dim`` and ``dim + 1``, as ``get_1d``
+        takes and makes them -> V2."""
+        if _plain(pixel_xy):
+            return self.get_2d_plain(pixel_xy, sample_idx, dim)
+        return self._draw(pixel_xy, sample_idx, dim, two_d=True)
+
+    def _draw(self, pixel_xy, sample_idx, dim, two_d: bool):
+        from ..utils.vec import V2
+        n, dev = pixel_xy.shape[0], pixel_xy.device
+        row, col = pixel_strides(pixel_xy)
+        s, d = operand(sample_idx, n, dev), operand(dim, n, dev)
+        if n >= 2 ** 31 or self.log2_spp > 31 or self.n_base4_digits > 31:
+            raise ValueError("lane count, spp or resolution beyond the "
+                             "draw kernel's 32-bit index")
+        u = torch.empty(n, dtype=torch.float32, device=dev)
+        v = torch.empty(n, dtype=torch.float32, device=dev) if two_d else None
+        if n:
+            with torch.cuda.device(dev):
+                rc = _library().launch_zsobol_draw(
+                    n, pixel_xy.data_ptr(), row, col,
+                    _ptr_of(s), s.stride, s.value,
+                    _ptr_of(d), d.stride, d.value, self.seed & M32,
+                    self.log2_spp, self.n_base4_digits, *PACKED_PERM_CODES,
+                    u.data_ptr(), None if v is None else v.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{KERNEL_NAME} launch failed: "
+                                   f"cudaError {rc}")
+            cuda_trace._count_launch(KERNEL_NAME, n)
+        return V2(u, v) if two_d else u
+
+    def get_1d_plain(self, pixel_xy, sample_idx, dim):
+        """``get_1d`` as int64 tensor ops, on any device."""
         morton = self._morton(pixel_xy, sample_idx)
         dim = self._lanes(dim, morton)
         idx = self._sample_index(morton, dim)
@@ -203,7 +352,8 @@ class ZSobolSampler:
         s0, _ = _hash2(dim + 1, self.seed)
         return _u32_to_unit_float(_fast_owen(self._sobol_u32(idx, 0), s0))
 
-    def get_2d(self, pixel_xy, sample_idx, dim):
+    def get_2d_plain(self, pixel_xy, sample_idx, dim):
+        """``get_2d`` as int64 tensor ops, on any device."""
         from ..utils.vec import V2
         morton = self._morton(pixel_xy, sample_idx)
         dim = self._lanes(dim, morton)
