@@ -12,7 +12,9 @@ no switch for the stages that lost.  K2 ships the binary walk, so every
 stage also gets a launcher of the team walk's fast any-hit form
 (``team_kernel<false, true>``), which the shipped source does not launch.
 
-  binary        K2 (any_hit) and K2p's yardstick (any_hit_precise_v1)
+  binary        K2 (any_hit), the binary walk; for K2p's rays no
+                binary walk is built (its precise form was removed after
+                the team walk beat it: PERF.md section 6)
   team          the team walk with the closest-hit agreement as it is
                 (nearest hit by reduce_min and shuffles; the lanes on a ray
                 stop at their own next leaf once one of them has a hit),
@@ -260,8 +262,6 @@ def main() -> int:
         # its longest ray
         sets["shadow_step2_first_8192"] = rec[1][:, :8192].contiguous()
         sets["shadow_step1"] = rec[0]
-        binary = (cuda_trace.any_hit_precise_v1 if precise
-                  else cuda_trace.any_hit)
         plain = getattr(cuda_trace, name + "_plain")
         tris = bvh.tri9 if precise else bvh.tri_m12
         for set_name, rays in sets.items():
@@ -272,11 +272,11 @@ def main() -> int:
 
             def run(stage, counters=None):
                 if stage == "binary":
-                    return binary(bvh, rays, counters=counters)
+                    return cuda_trace.any_hit(bvh, rays, counters=counters)
                 return team_any_hit(libs[stage], bvh, precise, rays,
                                     counters)
 
-            order = ["binary", *STAGES]
+            order = [*STAGES] if precise else ["binary", *STAGES]
             times = {s: [] for s in order}
             for stage in order + order[::-1]:
                 times[stage].append(cs.device_ms(lambda: run(stage), 20))
@@ -293,7 +293,7 @@ def main() -> int:
                     node_visits=visits, tri_tests=tests,
                     max_node_visits_of_a_ray=max_visits,
                     max_tri_tests_of_a_ray=max_tests,
-                    **(cuda_trace.launch_info(binary.__name__, rays.shape[1])
+                    **(cuda_trace.launch_info("any_hit", rays.shape[1])
                        if stage == "binary" else
                        team_info(libs[stage], precise, rays.shape[1])))
             print(json.dumps({**{k: v for k, v in row.items() if k != "stages"},

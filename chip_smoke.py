@@ -43,14 +43,9 @@ line per phase; any failed check raises and the script exits non-zero.
            kernel, CUDA events around the batch: no host time in it);
            ``call_ms`` is CUDA events around one wrapper call (median of
            10), most of which is the host getting to the launch; the plain
-           version is the median of 3 calls.  ``prev_ms`` is the binary
-           walk K2p replaced (``any_hit_precise_v1``), device time taken in
-           turns with K2p's on every K2p ray set, and summed over the
-           shadow rays of every step of the first tile (the launches a
-           quarter of the render makes); which is faster is printed, not
-           gated.  K2 is the binary walk itself; the other kernels are
-           timed on the step-2 sets alone.  (Every any-hit design stage
-           against the binary walk: python3 any_hit_stages.py.)
+           version is the median of 3 calls.  Each kernel is timed on its
+           step-2 set.  (Every any-hit design stage against the binary
+           walk: python3 any_hit_stages.py.)
            The bound is the larger of the operations of one counted launch
            at the fp32 peak and its bytes (the seven floats of a live ray,
            the t_max of a dead or inactive one, results, one read of the
@@ -91,27 +86,22 @@ line per phase; any failed check raises and the script exits non-zero.
            must equal the eager film of the changed scene and differ from
            the first.  Every render below runs through the kept graph, as
            ``render`` does on a card.
-  lockstep scene 17 at the main path's size (4 tiles of 262,144 lanes),
-           fast and precise: the lockstep renders called as a user calls
-           them, each (tile, sample) replayed from one captured sample
-           (``integrator._SampleGraph``) kept between calls, against
-           their eager loops (the private ``graphed=False`` forms, the
-           plain version), eager first: the albedo and normal AOVs
-           (``render_accum``, 4 spp), ``count_rays_one_spp`` and
-           ``parallel.render_sharded`` (no group, MIS + Z-Sobol, depth 16,
-           LOCKSTEP_SHARDED_SPP spp; the same configuration, so the film
-           replays the count's kept graph).  An AOV and the count are
-           called twice through the graph, the first time with no graph
-           kept.  Gates: films and counts equal bit for bit; a first call
-           captures once (one lane count), every other graph call never;
-           the graph's launches exactly tiles x spp closest hit for an
-           AOV, tiles x spp x (1 + 16) closest hit and tiles x spp x 16
-           any hit for the sharded film and the count, the other pair
-           never; the eager loop's no more.  Reports ms, Mray/s (the
-           sharded film's rays are the count x spp), peak device memory,
-           the memory the kept graph holds, the capture's seconds (its
-           eager warm-up sample included) and the ms of a replayed
-           sample (a call with the kept graph over its samples).
+  films    scene 17 at the main path's size (4 tiles of 262,144 lanes),
+           fast and precise: the forward films other than ``render``,
+           called as a user calls them.  The albedo and normal AOVs
+           (``render_accum``, FILMS_AOV_SPP spp), eager on every device:
+           timed, one closest-hit launch a tile and sample, no capture.
+           ``count_rays_one_spp`` and ``parallel.render_sharded`` (no
+           group, MIS + Z-Sobol, depth 16, FILMS_SHARDED_SPP spp; the same
+           configuration, so the film replays the count's kept step)
+           through the wavefront, each against its eager wavefront form
+           (the private ``graphed=False`` form, the plain version), eager
+           first; the count is called twice through the graph, the first
+           time with no graph kept.  Gates: counts and films equal bit for
+           bit; the count's first graph call captures the step once (the
+           tile's lanes), every other call never; the same launches both
+           ways.  Reports ms, Mray/s (the sharded film's rays are the
+           count x spp), peak device memory and the capture's seconds.
   render   the fast main path: render() of scene 17, MIS + Z-Sobol,
            1024x1024, depth 16, table_res 64 -- a 1 spp warm-up, then a
            timed 4 spp render (a first call of its configuration: it
@@ -320,8 +310,6 @@ KERNELS = {
 }
 FAST = ("closest_hit", "any_hit")
 PRECISE = ("closest_hit_precise", "any_hit_precise")
-# the binary walk K2p replaced: timed here, launched by no render
-V1 = ("any_hit_precise_v1",)
 # wavefront steps whose rays are checked and timed: 1 and 2 coherent, 6
 # and 12 incoherent (dead lanes are regenerated while samples are left),
 # 24 and 32 with the dead lanes of a tile that runs out of samples; the
@@ -452,8 +440,7 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set,
                  plain_stride=1):
     """Hold one kernel against its plain version on each ray set, then time
     both and compute the bound on ``timed_set``; on each set read the
-    counters and, for a kernel with a binary predecessor ``<name>_v1``
-    (K2p), time the two in turns.  With ``plain_stride`` > 1 the plain
+    counters.  With ``plain_stride`` > 1 the plain
     version (brute force: rays x triangles) runs on every
     ``plain_stride``-th lane only, timed by that one call, and the
     kernels' walk in PyTorch (``walk_wide_plain``) is held against the
@@ -463,7 +450,6 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set,
     tris = getattr(bvh, plain_table)
     kern = getattr(cuda_trace, name)
     plain = getattr(cuda_trace, name + "_plain")
-    prev = getattr(cuda_trace, name + "_v1", None)
     lanes = slice(None, None, plain_stride)
     max_abs = 0.0
     plain_call_ms = {}
@@ -527,25 +513,6 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set,
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {set_name}")
-        if prev is None:
-            continue
-        # the binary walk it replaced, timed in turns with it
-        c_prev = torch.zeros(4, dtype=torch.int64, device=rays.device)
-        if not torch.equal(prev(bvh, rays, counters=c_prev), got_all):
-            raise AssertionError(f"{name}_v1 differs from {name} on "
-                                 f"{set_name}")
-        times = {prev: [], kern: []}
-        for fn in (prev, kern, kern, prev):
-            times[fn].append(device_ms(lambda: fn(bvh, rays), 20))
-        pv, pt, pmv, pmt = c_prev.tolist()
-        row_prev = dict(ms=statistics.mean(times[kern]),
-                        prev_ms=statistics.mean(times[prev]))
-        emit("kernels", kernel=name, timed_rays=set_name, rays=rays.shape[1],
-             active=int(active.sum()), **row_prev,
-             prev_over_new=row_prev["prev_ms"] / row_prev["ms"],
-             prev_node_visits=pv, prev_tri_tests=pt,
-             prev_max_node_visits_of_a_ray=pmv,
-             prev_max_tri_tests_of_a_ray=pmt)
     rays = ray_sets[timed_set]
     live = int((rays[6] > 0.0 if closest else rays[6] >= 0.0).sum())
     ms = device_ms(lambda: kern(bvh, rays), 20)
@@ -575,33 +542,6 @@ def check_kernel(cuda_trace, bvh, name, ray_sets, timed_set,
          node_visits=visits, tri_tests=tests, ops=ops, bytes=nbytes, **row,
          call_ms=call_ms, plain_lanes=len(range(n)[lanes]), library_ms=None,
          **cuda_trace.launch_info(name, n))
-    return row
-
-
-def time_over_tile(cuda_trace, bvh, name, step_rays):
-    """``name`` against its binary predecessor ``<name>_v1`` on the rays of
-    every wavefront step of a tile: each step's launch timed in turns with
-    the predecessor's, the device times summed over the tile.  Returns the
-    summary emitted."""
-    kern = getattr(cuda_trace, name)
-    prev = getattr(cuda_trace, name + "_v1")
-    ms, prev_ms = [], []
-    for k, rays in enumerate(step_rays, 1):
-        if not torch.equal(prev(bvh, rays), kern(bvh, rays)):
-            raise AssertionError(f"{name}_v1 differs from {name} on the "
-                                 f"shadow rays of step {k}")
-        times = {prev: [], kern: []}
-        for fn in (prev, kern, kern, prev):
-            times[fn].append(device_ms(lambda: fn(bvh, rays), 20))
-        ms.append(statistics.mean(times[kern]))
-        prev_ms.append(statistics.mean(times[prev]))
-    row = dict(kernel=name, timed_rays="every_shadow_step_of_tile1",
-               launches=len(step_rays), ms_sum=sum(ms),
-               prev_ms_sum=sum(prev_ms), prev_over_new=sum(prev_ms) / sum(ms),
-               steps_new_faster=sum(a < b for a, b in zip(ms, prev_ms)),
-               active=[int((r[6] >= 0.0).sum()) for r in step_rays],
-               ms_per_step=ms, prev_ms_per_step=prev_ms)
-    emit("kernels", **row)
     return row
 
 
@@ -654,8 +594,8 @@ def profile_steps(run_step, n: int, dev) -> dict:
 
 @contextlib.contextmanager
 def captures_of(graph_cls):
-    """Within: every ``graph_cls`` built (``integrator._StepGraph`` or
-    ``_SampleGraph``: one capture each) appends (its lanes, the seconds of
+    """Within: every ``graph_cls`` built (``integrator._StepGraph``: one
+    capture each) appends (its lanes, the seconds of
     its build: the eager warm-up and the capture) to the yielded list."""
     built = []
     real_init = graph_cls.__init__
@@ -703,7 +643,7 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
             calls.append(dict(
                 img=img, stats=stats, wall_s=time.perf_counter() - t0,
                 ms=a.elapsed_time(b), captures=len(caps),
-                launches={k: cuda_trace.LAUNCHES[k] for k in (*KERNELS, *V1)}))
+                launches={k: cuda_trace.LAUNCHES[k] for k in KERNELS}))
     img, stats = calls[0]["img"], calls[0]["stats"]
     wall_s, render_ms = calls[0]["wall_s"], calls[0]["ms"]
     launches, captures = calls[0]["launches"], calls[0]["captures"]
@@ -741,7 +681,7 @@ def timed_render(integ, cuda_trace, tm_mod, eotf_mod, phase, scene, meta, cam,
             raise AssertionError(f"{phase}: {k} launched {launches[k]} times "
                                  f"in {stats.n_steps} wavefront steps of "
                                  f"{per_step} launches")
-    for k in (*forbid, *V1):
+    for k in forbid:
         if launches[k] != 0:
             raise AssertionError(f"{phase}: {k} launched {launches[k]} times, "
                                  "expected none")
@@ -786,7 +726,7 @@ def graph_vs_eager(integ, cuda_trace, scene, meta, cam, cfg, expect):
                 s=wall, stats=stats, peak=torch.cuda.max_memory_allocated(),
                 captures=[t for _, t in caps],
                 launches={k: cuda_trace.LAUNCHES[k]
-                          for k in (*KERNELS, *V1)}))
+                          for k in KERNELS}))
             if graphed not in films:
                 films[graphed] = film
             elif not torch.equal(film, films[graphed]):
@@ -836,7 +776,7 @@ def graph_vs_eager(integ, cuda_trace, scene, meta, cam, cfg, expect):
     if any(r["stats"] != first for runs in ways.values() for r in runs):
         raise AssertionError(f"graph: steps or rays differ: {out}")
     want = {k: (first.n_steps * (1 + len(scene.instanced)) if k in expect
-                else 0) for k in (*KERNELS, *V1)}
+                else 0) for k in KERNELS}
     if any(r["launches"] != want for runs in ways.values() for r in runs):
         raise AssertionError(f"graph: launches differ from {want}: {out}")
     return out
@@ -946,88 +886,81 @@ def check_kept_scene(integ, scene, meta, cam):
                              f"call's scene: {out}")
 
 
-# samples of the lockstep phase: the AOVs', and the ray count's and
-# sharded film's, which share one configuration (the film replays the
-# count's kept graph; their eager loops are the phase's longest runs)
-LOCKSTEP_AOV_SPP = 4
-LOCKSTEP_SHARDED_SPP = 1
+# samples of the films phase: the AOVs', and the ray count's and sharded
+# film's, which share one configuration (the film replays the count's kept
+# step graph)
+FILMS_AOV_SPP = 4
+FILMS_SHARDED_SPP = 1
 
 
-def check_lockstep(integ, cuda_trace, scene, meta, cam, cfg):
-    """The lockstep phase: the AOVs, the ray count and the sharded film of
+def check_films(integ, cuda_trace, scene, meta, cam, cfg):
+    """The films phase: the AOVs, the ray count and the sharded film of
     scene 17 at ``cfg``'s size, fast and precise, each called as a user
     calls it (``render_accum``, ``count_rays_one_spp``,
-    ``parallel.render_sharded``) against its eager loop (the private
-    ``graphed=False`` form, the plain version), eager first.  The first
-    graph call of an AOV or of the count starts from no kept graph and
-    must capture one sample per lane count (each timed: its eager warm-up
-    sample and the capture); a second call replays the kept graph and
-    captures nothing; the sharded film, called after the count with the
-    same configuration, replays the count's graph."""
+    ``parallel.render_sharded``).  The AOVs run eagerly: their launches
+    and no capture are gated.  The count and the film are held against
+    their eager wavefront forms (the private ``graphed=False`` forms),
+    eager first; the first graph call of the count starts from no kept
+    graph and captures the step once (timed: its eager warm-up step and
+    the capture), a second call replays it, and the sharded film, of the
+    same configuration, replays it too."""
     from tpu_pathtracer_torch import parallel
     from tpu_pathtracer_torch.render import graphs
 
     dev = scene.device
     tile = integ.tile_lanes(cfg)
-    n_tiles = cfg.width * cfg.height // tile
-    # (lanes, seconds) of each _SampleGraph built
-    with captures_of(integ._SampleGraph) as captures:
+    n_tiles = -(-cfg.width * cfg.height // tile)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_trace.reset_launch_counts()
+        captures.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return dict(result=result, s=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated(),
+                    captures=list(captures),
+                    launches={k: cuda_trace.LAUNCHES[k] for k in KERNELS})
+
+    # (lanes, seconds) of each _StepGraph built
+    with captures_of(integ._StepGraph) as captures:
         for names, c in ((FAST, cfg),
                          (PRECISE, dataclasses.replace(cfg, precise=True))):
-            path = dataclasses.replace(c, spp=LOCKSTEP_SHARDED_SPP)
-            runs = []
             for a in ("albedo", "normal"):
-                ac = dataclasses.replace(c, strategy=a, spp=LOCKSTEP_AOV_SPP)
-                runs.append((
-                    a, ac, {names[0]: n_tiles * ac.spp}, True,
-                    lambda ac=ac: integ._aov_film(scene, meta, cam, ac, 0,
-                                                  None, None, False),
-                    lambda ac=ac: integ.render_accum(scene, meta, cam, ac)))
-            runs.append((
-                "count_rays_one_spp", path,
-                {names[0]: n_tiles * (1 + path.max_depth),
-                 names[1]: n_tiles * path.max_depth}, True,
-                lambda: integ._count_rays(scene, meta, cam, path, False),
-                lambda: integ.count_rays_one_spp(scene, meta, cam, path)))
-            runs.append((
-                "sharded", path,
-                {names[0]: n_tiles * path.spp * (1 + path.max_depth),
-                 names[1]: n_tiles * path.spp * path.max_depth}, False,
-                lambda: parallel._render_sharded(scene, meta, cam, path,
-                                                 None, dev, graphed=False),
-                lambda: parallel.render_sharded(scene, meta, cam, path)))
+                ac = dataclasses.replace(c, strategy=a, spp=FILMS_AOV_SPP)
+                out = run(lambda: integ.render_accum(scene, meta, cam, ac))
+                want = {k: n_tiles * ac.spp if k == names[0] else 0
+                        for k in KERNELS}
+                emit("films", scene=17, width=c.width, height=c.height,
+                     run=a, spp=ac.spp, precise=bool(c.precise),
+                     tiles=n_tiles, ms=out["s"] * 1e3,
+                     mray_s=c.width * c.height * ac.spp / out["s"] / 1e6,
+                     peak_mem_bytes=out["peak"], launches=out["launches"],
+                     captures=len(out["captures"]))
+                if out["launches"] != want or out["captures"]:
+                    raise AssertionError(f"films: {a} launched "
+                                         f"{out['launches']} and captured "
+                                         f"{out['captures']}, expected "
+                                         f"{want} and none")
+            path = dataclasses.replace(c, spp=FILMS_SHARDED_SPP)
+            graphs.release_graphs()
             rays0 = None
-            for label, rc, want, fresh, eager, graph in runs:
-                want = {k: want.get(k, 0) for k in (*KERNELS, *V1)}
-                ways = [("eager", eager), ("graph", graph)]
-                if fresh:
-                    ways.append(("graph_again", graph))
-                out = {}
-                for way, fn in ways:
-                    if way == "graph":
-                        if fresh:
-                            graphs.release_graphs()
-                        # what stays reserved is the kept graphs' pools
-                        torch.cuda.synchronize()
-                        torch.cuda.empty_cache()
-                        base = (torch.cuda.memory_allocated(),
-                                torch.cuda.memory_reserved())
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    cuda_trace.reset_launch_counts()
-                    captures.clear()
-                    t0 = time.perf_counter()
-                    result = fn()
-                    torch.cuda.synchronize()
-                    out[way] = dict(
-                        result=result, s=time.perf_counter() - t0,
-                        peak=torch.cuda.max_memory_allocated(),
-                        captures=list(captures),
-                        launches={k: cuda_trace.LAUNCHES[k] for k in want})
-                torch.cuda.empty_cache()
-                held = dict(
-                    allocated=torch.cuda.memory_allocated() - base[0],
-                    reserved=torch.cuda.memory_reserved() - base[1])
+            for label, eager, graph, again in (
+                    ("count_rays_one_spp",
+                     lambda: integ._count_rays(scene, meta, cam, path, False),
+                     lambda: integ.count_rays_one_spp(scene, meta, cam, path),
+                     True),
+                    ("sharded",
+                     lambda: parallel._render_sharded(scene, meta, cam, path,
+                                                      None, dev,
+                                                      graphed=False),
+                     lambda: parallel.render_sharded(scene, meta, cam, path),
+                     False)):
+                out = {"eager": run(eager), "graph": run(graph)}
+                if again:
+                    out["graph_again"] = run(graph)
                 ref = out["eager"]["result"]
                 if label == "count_rays_one_spp":
                     rays0 = ref
@@ -1035,19 +968,12 @@ def check_lockstep(integ, cuda_trace, scene, meta, cam, cfg):
                                "count_rays_one_spp"
                                else torch.equal(o["result"], ref))
                          for way, o in out.items() if way != "eager"}
-                rays = (rays0 * rc.spp if label in ("count_rays_one_spp",
-                                                    "sharded")
-                        else cfg.width * cfg.height * rc.spp)
-                # a call with the kept graph replays every (tile, sample)
-                replayed = out["graph_again" if fresh else "graph"]
-                samples = n_tiles * rc.spp
-                emit("lockstep", scene=17, width=c.width, height=c.height,
-                     run=label, spp=rc.spp, max_depth=rc.max_depth,
+                rays = rays0 * path.spp
+                emit("films", scene=17, width=c.width, height=c.height,
+                     run=label, spp=path.spp, max_depth=path.max_depth,
                      precise=bool(c.precise), tiles=n_tiles, equal=equal,
-                     rays=rays, count=rays0, capture_s=[
+                     rays=rays, capture_s=[
                          s for _, s in out["graph"]["captures"]],
-                     ms_per_replayed_sample=replayed["s"] * 1e3 / samples,
-                     held_between_calls_bytes=held,
                      **{way: dict(ms=o["s"] * 1e3,
                                   mray_s=rays / o["s"] / 1e6,
                                   peak_mem_bytes=o["peak"],
@@ -1056,24 +982,21 @@ def check_lockstep(integ, cuda_trace, scene, meta, cam, cfg):
                                   launches=o["launches"])
                         for way, o in out.items()})
                 if not all(equal.values()):
-                    raise AssertionError(f"lockstep: the {label} graph "
-                                         f"differs from eager ({c})")
+                    raise AssertionError(f"films: the {label} graph differs "
+                                         f"from eager ({c})")
                 lanes = {way: [n for n, _ in o["captures"]]
                          for way, o in out.items()}
-                if lanes != dict(eager=[], graph=[tile] if fresh else [],
-                                 **({"graph_again": []} if fresh else {})):
-                    raise AssertionError(f"lockstep: {label} captured "
-                                         f"{lanes}, expected one capture "
-                                         f"of {tile} lanes on the first "
-                                         "call of a configuration only")
+                first = [tile] if label == "count_rays_one_spp" else []
+                if lanes != dict(eager=[], graph=first,
+                                 **({"graph_again": []} if again else {})):
+                    raise AssertionError(f"films: {label} captured {lanes}, "
+                                         f"expected {first} on the first "
+                                         "graph call only")
                 got = {way: o["launches"] for way, o in out.items()}
-                if any(n != want for way, n in got.items()
-                       if way != "eager") or any(
-                        got["eager"][k] > n or (n == 0 and got["eager"][k])
-                        for k, n in want.items()):
-                    raise AssertionError(f"lockstep: {label} launches "
-                                         f"{got}, expected {want}")
-                del out, ref, result
+                if any(n != got["eager"] for n in got.values()) \
+                        or not got["eager"][names[0]]:
+                    raise AssertionError(f"films: {label} launches {got}")
+                del out, ref
     graphs.release_graphs()
 
 
@@ -1431,7 +1354,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
         c = dataclasses.replace(cfg, precise=names == PRECISE)
         want = {names[0]: c.spp * (1 + c.max_depth),
                 names[1]: c.spp * c.max_depth,
-                **{k: 0 for k in (*other_kernels, *V1)}}
+                **{k: 0 for k in other_kernels}}
 
         def eager(p):
             return parallel._loss_and_grads(p, scene, meta, cam, c, zero,
@@ -1473,9 +1396,7 @@ def check_train(integ, cuda_trace, scene_at, dev):
         px = integ._pixel_grid(size, size, dev)
         cuda_trace.reset_launch_counts()
         with torch.no_grad():
-            parallel._accum_linear(scene, meta, cam,
-                                   dataclasses.replace(c, early_exit=False),
-                                   px)
+            parallel._accum_linear(scene, meta, cam, c, px)
         torch.cuda.synchronize()
         forward = {k: cuda_trace.LAUNCHES[k] for k in want}
         forward_gathers = cuda_trace.LAUNCHES[GATHER]
@@ -2050,9 +1971,6 @@ def main() -> int:
             rec[name][1][:, :SMALL_LAUNCH].contiguous()
         kernel_rows[name] = check_kernel(cuda_trace, scene.bvh, name, sets,
                                          f"{prefix}2")
-    # K2p against the binary walk over the launches of a whole tile
-    time_over_tile(cuda_trace, scene.bvh, "any_hit_precise",
-                   rec_precise["any_hit_precise"])
     del rec_fast, rec_precise
 
     # ---- kernels on the traffic of glass and of an environment light ----------
@@ -2104,8 +2022,8 @@ def main() -> int:
     # ---- graph: the captured step against the eager step loop ----------------
     check_graph(integ, cuda_trace, scene, meta, cam, cfg)
 
-    # ---- lockstep: the captured lockstep sample against its eager loop ------
-    check_lockstep(integ, cuda_trace, scene, meta, cam, cfg)
+    # ---- films: the AOVs, the ray count and the sharded film ----------------
+    check_films(integ, cuda_trace, scene, meta, cam, cfg)
 
     # ---- render: the fast and the precise main paths --------------------------
     helpers = (integ, cuda_trace, tm_mod, eotf_mod)

@@ -112,11 +112,10 @@ def test_closest_hit_precise_kernel_matches_plain(dragon, dev):
 
 
 @pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
-def test_any_hit_kernels_match_v1_and_count(dragon, dev, precise):
-    """K2 (the binary walk) and K2p (the wide team walk) against the plain
-    version and K2p against the binary walk it replaced, with short, long,
-    zero-length and inactive rays; the (4,) counters hold sums and per-ray
-    maxima."""
+def test_any_hit_kernels_on_mixed_rays_match_plain(dragon, dev, precise):
+    """K2 (the binary walk) and K2p (the wide team walk) against their
+    plain versions, with short, long, zero-length and inactive rays, one
+    launch a call; the (4,) counters hold sums and per-ray maxima."""
     o, d, act, tmax = _rays(8192, 5, dev)
     k = torch.arange(8192, device=dev)
     tmax = torch.where(k % 3 == 0, tmax, torch.full_like(tmax, ttrace.BIG_T))
@@ -127,19 +126,13 @@ def test_any_hit_kernels_match_v1_and_count(dragon, dev, precise):
                     if precise else (cuda_trace.any_hit_plain, dragon.tri_m12))
     want = plain(table, rays)
     assert want.any() and not want.all() and not want[tmax == 0].any()
-    names = (name, "any_hit_precise_v1") if precise else (name,)
-    visits = []
-    for kernel in names:
-        c = torch.zeros(4, dtype=torch.int64, device=dev)
-        before = cuda_trace.LAUNCHES[kernel]
-        got = getattr(cuda_trace, kernel)(dragon, rays, counters=c)
-        assert cuda_trace.LAUNCHES[kernel] == before + 1
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), kernel
-        _assert_counts(c, rays)
-        visits.append(c[0].item())
-    # a wide visit stands for up to three binary ones
-    assert visits == sorted(visits) and len(set(visits)) == len(visits)
+    c = torch.zeros(4, dtype=torch.int64, device=dev)
+    before = cuda_trace.LAUNCHES[name]
+    got = getattr(cuda_trace, name)(dragon, rays, counters=c)
+    assert cuda_trace.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _assert_counts(c, rays)
     # the team kernels: at most one block a 128 rays, and no more than the
     # card holds at once; the binary walk: one block a 128 rays
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -150,9 +143,9 @@ def test_any_hit_kernels_match_v1_and_count(dragon, dev, precise):
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
         assert info["grid"] == min(8192 // 128, sms * info["blocks_per_sm"])
         assert cuda_trace.launch_info(kernel, 100)["grid"] == 1
-    binary = "any_hit_precise_v1" if precise else "any_hit"
-    info = cuda_trace.launch_info(binary, 8192)
-    assert info["registers"] > 0 and info["grid"] == 8192 // 128
+    if not precise:
+        info = cuda_trace.launch_info("any_hit", 8192)
+        assert info["registers"] > 0 and info["grid"] == 8192 // 128
 
 
 @pytest.mark.parametrize("kernel", ["closest_hit", "closest_hit_precise",
@@ -266,16 +259,14 @@ def test_wrapper_checks_inputs(dragon, dev):
     for fn in (cuda_trace.closest_hit_precise, cuda_trace.any_hit_precise):
         with pytest.raises(ValueError):      # the precise kernels take tri9p
             fn(replace(dragon, tri9p=dragon.tri9), rays)
-    for fn in (cuda_trace.any_hit, cuda_trace.any_hit_precise_v1):
-        with pytest.raises(ValueError):
-            fn(replace(dragon, nodes_f=dragon.nodes_f.cpu()), rays)
-        with pytest.raises(ValueError):
-            fn(replace(dragon, stack_depth=cuda_trace.MAX_STACK + 1), rays)
-        with pytest.raises(ValueError):
-            fn(dragon, rays[:, ::2])
-    with pytest.raises(ValueError):          # the precise yardstick takes tri9
-        cuda_trace.any_hit_precise_v1(replace(dragon, tri9=dragon.tri_m12),
-                                      rays)
+    with pytest.raises(ValueError):
+        cuda_trace.any_hit(replace(dragon, nodes_f=dragon.nodes_f.cpu()),
+                           rays)
+    with pytest.raises(ValueError):
+        cuda_trace.any_hit(replace(dragon,
+                                   stack_depth=cuda_trace.MAX_STACK + 1), rays)
+    with pytest.raises(ValueError):
+        cuda_trace.any_hit(dragon, rays[:, ::2])
 
 
 def _bits_equal(a, b):
@@ -291,7 +282,7 @@ def test_zsobol_draw_kernel_matches_plain(dev, spp, res):
     """The draw kernel against the int64 plain version on the card, bit for
     bit, on 262,144 lanes: per-lane int32 samples (some -1, a lane that
     never regenerated) and dims up to 3 + 10 x 15 + 9, int64 pixels, a 0-d
-    int64 sample (the lockstep graph's) and python-int samples and dims,
+    int64 sample and python-int samples and dims,
     negative ones included; each call is one launch of its lanes."""
     n = 262_144
     gen = torch.Generator(device=dev).manual_seed(spp + res[0])
@@ -613,17 +604,16 @@ def test_grad_graph_cache_and_release(dev):
 
 @pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
 def test_lockstep_graphs_equal_eager(dev, precise, monkeypatch):
-    """The lockstep renders, called as a user calls them, replay one
-    captured sample per lane count: scene 17 at 64x40 in tiles of 1,024
-    lanes (the last tile of the sharded film 512 lanes, the ray count's
-    padded rows 512).  The AOVs' films (``render_accum``),
-    ``render_sharded``'s image and ``count_rays_one_spp`` equal the eager
-    loops' bit for bit; the first call captures once per lane count, a
-    second call of the same configuration replays the kept graphs and
-    captures nothing; the graph launches each kernel once per (tile,
-    sample, bounce), the eager loop, which stops early, no more;
-    ``release_graphs()`` returns the memory in use to its level before
-    the first call."""
+    """The forward films the lockstep sample no longer renders, called as a
+    user calls them: scene 17 at 64x40 in tiles of 1,024 lanes.
+    ``count_rays_one_spp`` and ``render_sharded``'s image replay the kept
+    wavefront step and equal their eager wavefront forms bit for bit, with
+    the same launches: the count captures the configuration's step once
+    (its 512 padded rows run eagerly), a second count replays it, and the
+    sharded film (with no group its block is the grid) replays it too; a
+    block of 640 pixels captures its own step in the one slot; the AOVs
+    run eagerly and capture nothing; ``release_graphs()`` returns the
+    memory in use to its level before the first call."""
     from tpu_pathtracer_torch import parallel
     from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.render import integrator as tint
@@ -634,54 +624,55 @@ def test_lockstep_graphs_equal_eager(dev, precise, monkeypatch):
                             precise=precise, tile_rays=1024)
     names = (("closest_hit_precise", "any_hit_precise") if precise
              else ("closest_hit", "any_hit"))
-    depth = cfg.max_depth
     captures = []
-    real_init = tint._SampleGraph.__init__
+    real_init = tint._StepGraph.__init__
 
     def counted_init(self, scene, meta, camera, cfg, sampler, px, *rest):
         captures.append(px.shape[0])
         real_init(self, scene, meta, camera, cfg, sampler, px, *rest)
-    monkeypatch.setattr(tint._SampleGraph, "__init__", counted_init)
+    monkeypatch.setattr(tint._StepGraph, "__init__", counted_init)
 
-    def aov(strategy):
-        a = dataclasses.replace(cfg, strategy=strategy)
-        return lambda g: (tint.render_accum(s, m, c, a) if g else
-                          tint._aov_film(s, m, c, a, 0, None, None, False))
-
-    runs = [(f"aov_{a}", aov(a), [3 * 2, 0], [1024])
-            for a in ("albedo", "normal")]
-    runs.append(("sharded", lambda g: (
-        parallel.render_sharded(s, m, c, cfg, device=dev) if g else
-        parallel._render_sharded(s, m, c, cfg, None, dev, graphed=False)),
-        [3 * 2 * (1 + depth), 3 * 2 * depth], [1024, 512]))
-    runs.append(("count", lambda g: (
-        tint.count_rays_one_spp(s, m, c, cfg) if g else
-        tint._count_rays(s, m, c, cfg, False)),
-        [4 * (1 + depth), 4 * depth], [1024, 512]))
-    for label, run, want, lanes in runs:
+    block = tint._pixel_grid(64, 40, dev)[:640]
+    runs = [
+        ("count", lambda g: (tint.count_rays_one_spp(s, m, c, cfg) if g else
+                             tint._count_rays(s, m, c, cfg, False)), [1024]),
+        ("sharded", lambda g: (
+            parallel.render_sharded(s, m, c, cfg, device=dev) if g else
+            parallel._render_sharded(s, m, c, cfg, None, dev, graphed=False)),
+         []),
+        ("block", lambda g: tint._wavefront_film(
+            s, m, c, cfg, 0, None, None, graphed=g, pixels=block)[0], [640])]
+    albedo = dataclasses.replace(cfg, strategy="albedo")
+    # eager calls build the per-device tables first
+    tint._count_rays(s, m, c, cfg, False)
+    aov = tint._aov_film(s, m, c, albedo, 0, None, None)
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    in_use = torch.cuda.memory_allocated()
+    for label, run, lanes in runs:
         eager, n_e = _launched(lambda: run(False), names)
-        graphs.release_graphs()
-        torch.cuda.synchronize()
-        in_use = torch.cuda.memory_allocated()
         captures.clear()
         graph, n_g = _launched(lambda: run(True), names)
         assert captures == lanes, label
         captures.clear()
         again, n_a = _launched(lambda: run(True), names)
         assert captures == [], label
-        assert n_g == n_a == want, label
-        assert all(e <= g for e, g in zip(n_e, n_g)), label
+        assert n_g == n_a == n_e and n_e[0] > 0, label
         if label == "count":
-            assert graph == again == eager
+            assert graph == again == eager > 64 * 40
         else:
             assert torch.equal(graph, eager), label
             assert torch.equal(again, eager), label
-        del graph, again
-        graphs.release_graphs()
-        torch.cuda.synchronize()
-        assert graphs.kept("lockstep") is None
-        assert torch.cuda.memory_allocated() == in_use, label
-        del eager
+        del graph, again, eager
+    assert graphs.kept("wavefront").step.px.shape[0] == 640
+    film, n_aov = _launched(lambda: tint.render_accum(s, m, c, albedo), names)
+    assert captures == [] and n_aov == [3 * 2, 0]
+    assert torch.equal(film, aov)
+    del film
+    graphs.release_graphs()
+    torch.cuda.synchronize()
+    assert graphs.kept("wavefront") is None
+    assert torch.cuda.memory_allocated() == in_use
 
 
 @pytest.mark.slow

@@ -105,7 +105,7 @@ def test_fit_program_reaches_columns_only_through_gather_rows():
     try:
         s, m, c = load_scene(17, 8, 8, table_res=16, device="cpu")
         cfg = tint.RenderConfig(width=8, height=8, spp=1, max_depth=2,
-                                precise=True, early_exit=False)
+                                precise=True)
         params = {k: v.detach().clone().requires_grad_(True)
                   for k, v in tpar.extract_params(s).items()}
         with torch.enable_grad():

@@ -41,10 +41,14 @@ def _port(jscene):
 
 
 def _tcfg(jcfg):
-    """The port's RenderConfig of a JAX one, with the watertight test."""
+    """The port's RenderConfig of a JAX one, with the watertight test: the
+    fields the port has (its differentiable pass always runs every bounce,
+    as the JAX package's ``loss_and_grads`` sets its loop to)."""
+    ported = {f.name for f in dataclasses.fields(tint.RenderConfig)}
     return tint.RenderConfig(**{f.name: getattr(jcfg, f.name)
                                 for f in dataclasses.fields(jcfg)
-                                if f.name != "precise"}, precise=True)
+                                if f.name in ported - {"precise"}},
+                             precise=True)
 
 
 def _jax_loss_and_grads(jscene, jcfg):

@@ -1,24 +1,15 @@
-"""The lockstep sample and the differentiable step can be captured as CUDA
-graphs.
+"""The lockstep sample and the differentiable step read nothing back, so
+the step can be captured as a CUDA graph.
 
-On a CUDA device ``render_accum``'s AOVs, ``render_sharded`` and
-``count_rays_one_spp`` replay one captured lockstep sample
-(``integrator._SampleGraph``), whose sample index is a 0-d tensor and
-which runs every ``max_depth`` bounce; ``loss_and_grads`` replays its
-forward and backward captured as one graph
-(``parallel._LossAndGradsGraph``).  Neither may copy host data to the
-device or read a device value back: the forward is guarded by the
-wavefront test's ``TorchFunctionMode``, the backward, whose ops autograd
-issues below the Python layer, by a ``TorchDispatchMode`` that records
-the ATen ops of a read back or a host copy.  The kernels' plain versions
-are exempt, as there.
-
-The captured sample runs every bounce where the eager loop stops once
-every lane is dead, and must give the early-exit film bit for bit: a
-bounce that no lane entered alive adds nothing and keeps the wavelengths.
-That is held on tiles of 4 lanes, where the early exit fires, on scenes 8
-(dispersive glass, whose ``terminate_secondary`` acts on a lane's last
-hit) and 17.  The port's AOV and sharded films are
+``loss_and_grads`` replays its forward (the lockstep ``trace_sample``,
+every ``max_depth`` bounce) and backward captured as one graph
+(``parallel._LossAndGradsGraph``, slot "grad").  Neither may copy host
+data to the device or read a device value back: the forward is guarded by
+the wavefront test's ``TorchFunctionMode``, the backward, whose ops
+autograd issues below the Python layer, by a ``TorchDispatchMode`` that
+records the ATen ops of a read back or a host copy.  The kernels' plain
+versions are exempt, as there.  ``trace_sample`` is held to that guard on
+every strategy, the AOVs included.  The port's AOV and sharded films are
 held to the JAX package's (AOVs within 1e-5, the sharded film's display
 RMSE within 0.002, as tests/test_torch_slice_scene0.py gates them).
 """
@@ -37,7 +28,6 @@ from tpu_pathtracer.scenes import load_scene as jload
 from tpu_pathtracer_torch import parallel as tpar
 from tpu_pathtracer_torch.bridge import as_numpy_tree, scene_from_numpy
 from tpu_pathtracer_torch.ops import cuda_trace
-from tpu_pathtracer_torch.ops import trace as ttrace
 from tpu_pathtracer_torch.render import graphs
 from tpu_pathtracer_torch.render import integrator as tint
 from tpu_pathtracer_torch.render.sampler import make_sampler
@@ -129,30 +119,25 @@ CASES = [
                               + ("-precise" if c[3] else "") for c in CASES])
 def test_lockstep_sample_copies_nothing_from_the_host(guards, scene, strategy,
                                                       sampler, precise):
-    """``trace_sample`` as ``_SampleGraph`` captures it: the sample index
-    a 0-d tensor, every bounce run (``host_exit=False``).  Its rgb and
-    rays equal those of a python index and the early-exit loop."""
+    """``trace_sample`` with the sample index a 0-d tensor, every bounce
+    run, reads nothing back and copies nothing from the host.  Its rgb
+    equals that of a python index."""
     s, m, c = _scene(scene)
     cfg = tint.RenderConfig(width=W, height=H, spp=4, max_depth=4,
                             strategy=strategy, sampler=sampler,
                             precise=precise)
     px = tint._pixel_grid(W, H, "cpu")
     smp = make_sampler(sampler, cfg.seed, cfg.spp, (W, H))
-    counted = strategy in tint.PATH_STRATEGIES
     idx = torch.full((), 2, dtype=torch.int64)
 
     def sample():
-        return tint.trace_sample(s, m, c, cfg, smp, px, idx,
-                                 with_ray_count=counted, host_exit=False)
+        return tint.trace_sample(s, m, c, cfg, smp, px, idx)
     sample()                # the warm-up builds the per-device tables
     with guards[0], guards[1]:
         out = sample()
     assert not guards[0].found, guards[0].found
     assert not guards[1].found, guards[1].found
-    ref = tint.trace_sample(s, m, c, cfg, smp, px, 2, with_ray_count=counted)
-    if counted:
-        assert int(out[1]) == int(ref[1]) > W * H
-        out, ref = out[0], ref[0]
+    ref = tint.trace_sample(s, m, c, cfg, smp, px, 2)
     assert torch.equal(out, ref) and float(out.abs().sum()) > 0
 
 
@@ -164,7 +149,7 @@ def test_loss_program_reads_nothing_back(guards, precise):
     ``loss_and_grads``'s."""
     s, m, c = _scene(17)
     cfg = tint.RenderConfig(width=W, height=H, spp=1, max_depth=2,
-                            precise=precise, early_exit=False)
+                            precise=precise)
     px = tint._pixel_grid(W, H, "cpu")
     target = torch.full((W * H, 3), 0.25)
 
@@ -208,54 +193,6 @@ def test_dispatch_guard_sees_the_backward(guards):
         torch.tensor([1.0, 2.0])
     assert [f for f, _ in guards[1].found] == [
         "aten._local_scalar_dense.default", "aten.lift_fresh.default"]
-
-
-# pixels of a 16x12 film around the glass bunny (scene 8) and the dragon
-# (scene 17): 8 tiles of 4 lanes
-_CENTRE = [(x, y) for y in range(4, 8) for x in range(6, 14)]
-
-
-@pytest.mark.parametrize("scene,strategy,sampler", [(8, "mis", "random"),
-                                                    (17, "mis", "sobol")])
-def test_captured_loop_gives_the_early_exit_film(monkeypatch, scene, strategy,
-                                                 sampler):
-    """On tiles of 4 lanes, where the early exit fires (fewer closest-hit
-    queries), the loop a graph captures (``host_exit=False``: every bounce
-    run, no host read) gives the early-exit film and rays bit for bit.
-    Running every bounce with nothing kept back (``early_exit=False``, the
-    differentiable pass's loop) gives the same rays but not the same film
-    on scene 8: a lane that roulette kills on the dispersive glass has its
-    wavelengths collapsed by the next bounce, which the early exit does
-    not run when no lane is left."""
-    s, m, c = _scene(scene)
-    cfg = tint.RenderConfig(width=W, height=H, spp=2, max_depth=8,
-                            strategy=strategy, sampler=sampler)
-    smp = make_sampler(sampler, cfg.seed, cfg.spp, (W, H))
-    px = torch.tensor(_CENTRE, dtype=torch.int32)
-    calls = []
-    real = ttrace.intersect_scene
-    monkeypatch.setattr(ttrace, "intersect_scene",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    ways = {"early_exit": (True, True), "captured": (True, False),
-            "every_bounce": (False, True)}
-    films, rays, queries = {}, {}, {}
-    for way, (early, host_exit) in ways.items():
-        calls.clear()
-        c_w = dataclasses.replace(cfg, early_exit=early)
-        out = [tint.trace_sample(s, m, c, c_w, smp, px[k:k + 4], i,
-                                 with_ray_count=True, host_exit=host_exit)
-               for k in range(0, len(_CENTRE), 4) for i in range(cfg.spp)]
-        films[way] = torch.cat([rgb for rgb, _ in out])
-        rays[way] = sum(int(n) for _, n in out)
-        queries[way] = len(calls)
-    n_samples = len(_CENTRE) // 4 * cfg.spp
-    assert queries["captured"] == n_samples * (1 + cfg.max_depth)
-    assert queries["early_exit"] < queries["captured"]
-    assert torch.equal(films["captured"], films["early_exit"])
-    assert rays["captured"] == rays["early_exit"] == rays["every_bounce"]
-    assert float(films["early_exit"].sum()) > 0
-    if scene == 8:
-        assert not torch.equal(films["every_bounce"], films["early_exit"])
 
 
 @pytest.fixture(scope="module")
@@ -310,25 +247,26 @@ def test_kept_graphs_are_keyed_and_released():
     build, another key releases it and keeps the new one, and
     ``release_graphs`` frees every slot (or the named ones)."""
     graphs.release_graphs()
-    a = graphs.keep("lockstep", ("k", 1), lambda: _Graph("a"))
-    assert graphs.keep("lockstep", ("k", 1), lambda: _Graph("no")) is a
+    a = graphs.keep("wavefront", ("k", 1), lambda: _Graph("a"))
+    assert graphs.keep("wavefront", ("k", 1), lambda: _Graph("no")) is a
     g = graphs.keep("grad", ("k", 1), lambda: _Graph("g"))
-    b = graphs.keep("lockstep", ("k", 2), lambda: _Graph("b"))
+    b = graphs.keep("wavefront", ("k", 2), lambda: _Graph("b"))
     assert a.released and not b.released and not g.released
-    assert graphs.kept("lockstep") is b and graphs.kept("grad") is g
+    assert graphs.kept("wavefront") is b and graphs.kept("grad") is g
     graphs.release_graphs("grad")
     assert g.released and graphs.kept("grad") is None
-    assert graphs.kept("lockstep") is b
+    assert graphs.kept("wavefront") is b
     tpar.release_graphs()
-    assert b.released and graphs.kept("lockstep") is None
+    assert b.released and graphs.kept("wavefront") is None
 
 
 def test_scene_tree_map_and_copy_in():
     """``map_tensors`` reaches every tensor of a scene (tables, the BVH,
     the textures and instanced groups) in one order: a clone shares no
     storage and equals the scene, ``to`` keeps every value, and
-    ``_sample_graphs`` keeps one copy of the scene per configuration,
-    copying each call's values in, and releases it for another key."""
+    ``_wavefront_graph`` keeps one copy of the scene per configuration
+    and tile size, copying each call's values in, and releases it for
+    another key."""
     s, m, c = _scene(12)
     ts = tensors_of(s)
     assert len(ts) > 40 and any(t is s.bvh.nodes_w for t in ts)
@@ -343,14 +281,14 @@ def test_scene_tree_map_and_copy_in():
     assert graphs.shapes_of(clone) == graphs.shapes_of(s)
 
     graphs.release_graphs()
-    cfg = tint.RenderConfig(width=W, height=H, spp=2, strategy="albedo")
-    kept = tint._sample_graphs(s, m, c, cfg)
+    cfg = tint.RenderConfig(width=W, height=H, spp=2)
+    kept = tint._wavefront_graph(s, m, c, cfg, W * H)
     brighter = tpar.merge_params(s, {
         "base_coeff": s.materials.base_coeff + 1.0})
-    assert tint._sample_graphs(brighter, m, c, cfg) is kept
+    assert tint._wavefront_graph(brighter, m, c, cfg, W * H) is kept
     assert torch.equal(kept.scene.materials.base_coeff,
                        brighter.materials.base_coeff)
-    other = tint._sample_graphs(s, m, c, dataclasses.replace(cfg, spp=4))
+    other = tint._wavefront_graph(s, m, c, cfg, W * H // 2)
     assert other is not kept and kept.scene is None
     assert torch.equal(other.scene.materials.base_coeff,
                        s.materials.base_coeff)

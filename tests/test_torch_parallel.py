@@ -1,7 +1,8 @@
 """Port copies of tests/test_parallel.py: the pixel-sharded render and the
 all-reduced gradients of ``tpu_pathtracer_torch.parallel`` on a gloo
 process group of two CPU processes, against the same calls with no group
-(one device).
+(one device); and with no group, the sharded render against ``render``
+bit for bit.
 
 Every case runs in one pair of spawned processes (``_rank_main``), which
 render and backpropagate their halves of the padded pixel grid and write
@@ -21,6 +22,7 @@ import torch.distributed as dist
 
 from test_torch_slice_scene0 import two_torch_threads  # noqa: F401
 from tpu_pathtracer_torch import parallel as tpar
+from tpu_pathtracer_torch.render import film as tfilm
 from tpu_pathtracer_torch.render import integrator as tint
 from tpu_pathtracer_torch.scenes import load_scene
 
@@ -149,3 +151,25 @@ def test_uneven_pixel_count_pads(sharded, single):
     assert np.isfinite(img).all()
     ref = tint.render(*single[9, 7], _uneven_cfg(), device="cpu").numpy()
     np.testing.assert_allclose(img, ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("scene,sampler", [(8, "random"), (17, "sobol")],
+                         ids=["s8-mis-random", "s17-mis-sobol"])
+def test_sharded_render_with_no_group_is_render(monkeypatch, scene, sampler):
+    """With no group the one block is the grid, rendered through the
+    wavefront with the grid's tiling: the linear film equals
+    ``render_accum``'s and the image ``render``'s, bit for bit (scene 8's
+    dispersive glass, scene 17's clearcoat dragon)."""
+    s, m, c = load_scene(scene, 16, 12, table_res=16, device="cpu")
+    cfg = tint.RenderConfig(width=16, height=12, spp=2, max_depth=4,
+                            strategy="mis", sampler=sampler)
+    films = []
+    real = tfilm.finalize
+    monkeypatch.setattr(tfilm, "finalize",
+                        lambda acc, *a, **k: films.append(acc)
+                        or real(acc, *a, **k))
+    img = tint.render(s, m, c, cfg, device="cpu")
+    sharded = tpar.render_sharded(s, m, c, cfg, device="cpu")
+    # films[0] is render's: render_accum's film
+    assert len(films) == 2 and torch.equal(films[1], films[0])
+    assert torch.equal(sharded, img) and float(img.mean()) > 0

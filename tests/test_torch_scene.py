@@ -1,6 +1,6 @@
 """The port's scene build vs the JAX package's, import hygiene, the device
-rule, the NotImplementedError fences around what is not ported, and
-``early_exit=False``.
+rule, the NotImplementedError fences around what is not ported, and the
+differentiable pass's lockstep film against the wavefront's.
 
 Both packages build every scene with the pure-numpy SAH builder (both
 with TPT_NO_NATIVE=1), so every table must come out the same,
@@ -186,21 +186,18 @@ def test_outside_slice_config_raises(change, error):
         tint.render_wavefront(None, None, None, cfg)
 
 
-def test_early_exit_false_gives_the_same_film(scenes):
-    """early_exit=False (the differentiable pass's bounce loop: every
-    bounce runs, no host read of the alive flags) changes no film: the
-    wavefront ignores it, and trace_sample's extra bounces add nothing."""
+def test_every_bounce_lockstep_film_equals_the_wavefront_film(scenes):
+    """The differentiable pass's bounce loop (``trace_sample``: every
+    bounce runs, no host read of the alive flags) renders the wavefront's
+    film: the bounces after a lane died add nothing."""
     _, (ts, tm, tc) = scenes
     cfg = tint.RenderConfig(8, 6, spp=2, max_depth=5, precise=True)
-    off = dataclasses.replace(cfg, early_exit=False)
     wf = tint.render_wavefront(ts, tm, tc, cfg)
-    assert torch.equal(tint.render_wavefront(ts, tm, tc, off), wf)
     sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp, (8, 6))
     px = tint._pixel_grid(8, 6, "cpu")
-    films = [tint._accum_chunk(ts, tm, tc, c, sampler, cfg.spp, px, 0,
-                               torch.zeros((48, 3))) for c in (cfg, off)]
-    assert torch.equal(films[1], films[0])
-    np.testing.assert_allclose(films[0].numpy(), wf.numpy(), rtol=2e-5,
+    film = tint._accum_chunk(ts, tm, tc, cfg, sampler, cfg.spp, px, 0,
+                             torch.zeros((48, 3)))
+    np.testing.assert_allclose(film.numpy(), wf.numpy(), rtol=2e-5,
                                atol=2e-6)
     assert float(wf.mean()) > 0
 

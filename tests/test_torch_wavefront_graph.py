@@ -242,15 +242,15 @@ def test_kept_wavefront_graph_is_keyed_and_released():
     """The "wavefront" slot keeps one graph under its key beside the other
     slots, and ``_wavefront_graph`` keeps one copy of the scene and of its
     spectral table per configuration (key: meta, camera, cfg, device, the
-    scene's shapes), copying each call's values in; another configuration
+    scene's shapes, the tile's lanes), copying each call's values in; another configuration
     releases it, and ``release_graphs`` frees it."""
     graphs.release_graphs()
     a = graphs.keep("wavefront", ("k", 1), lambda: _Graph("a"))
     assert graphs.keep("wavefront", ("k", 1), lambda: _Graph("no")) is a
-    lock = graphs.keep("lockstep", ("k", 1), lambda: _Graph("l"))
+    lock = graphs.keep("grad", ("k", 1), lambda: _Graph("l"))
     b = graphs.keep("wavefront", ("k", 2), lambda: _Graph("b"))
     assert a.released and not b.released and not lock.released
-    assert graphs.kept("wavefront") is b and graphs.kept("lockstep") is lock
+    assert graphs.kept("wavefront") is b and graphs.kept("grad") is lock
     graphs.release_graphs("wavefront")
     assert b.released and graphs.kept("wavefront") is None
     assert not lock.released
@@ -259,16 +259,17 @@ def test_kept_wavefront_graph_is_keyed_and_released():
 
     s, m, c = load_scene(17, SIZE, SIZE, table_res=16, device="cpu")
     cfg = tint.RenderConfig(width=SIZE, height=SIZE, spp=2)
-    kept = tint._wavefront_graph(s, m, c, cfg)
+    kept = tint._wavefront_graph(s, m, c, cfg, SIZE * SIZE)
     assert torch.equal(kept.table, tint._spectral_table(s))
     brighter = dataclasses.replace(s, spectra=s.spectra * 2.0)
     brighter = tpar.merge_params(brighter, {
         "base_coeff": s.materials.base_coeff + 1.0})
-    assert tint._wavefront_graph(brighter, m, c, cfg) is kept
+    assert tint._wavefront_graph(brighter, m, c, cfg, SIZE * SIZE) is kept
     assert torch.equal(kept.scene.materials.base_coeff,
                        brighter.materials.base_coeff)
     assert torch.equal(kept.table, tint._spectral_table(brighter))
-    other = tint._wavefront_graph(s, m, c, dataclasses.replace(cfg, spp=4))
+    other = tint._wavefront_graph(s, m, c, dataclasses.replace(cfg, spp=4),
+                                  SIZE * SIZE)
     assert other is not kept and kept.scene is None and kept.table is None
     assert graphs.kept("wavefront") is other
     graphs.release_graphs()
@@ -345,7 +346,8 @@ def test_kept_step_graph_equals_eager_loop(fake_cuda_graphs):
     loop's bit for bit; a call with one material value changed, the scene
     passed as a new object, gives the eager film of the changed scene
     (the graph reads the call's values, not the first call's); another
-    configuration captures anew."""
+    configuration captures anew, as does a block of pixels of another
+    size; the ray count replays the render's graph."""
     built = fake_cuda_graphs
     w, h = 10, 10
     s, m, c = load_scene(17, w, h, table_res=16, device="cpu")
@@ -380,6 +382,21 @@ def test_kept_step_graph_equals_eager_loop(fake_cuda_graphs):
     assert torch.equal(moved, film(changed, False)[0])
     assert not torch.equal(moved, first)
 
+    # the ray count replays the render's graph (its padded rows run
+    # eagerly); a block of pixels of another size captures its own
+    assert tint._count_rays(s, m, c, cfg, graphed=True) == \
+        tint._count_rays(s, m, c, cfg, graphed=False)
+    assert len(built) == 1
+    block = tint._pixel_grid(w, h, "cpu")[30:80]
+    part, part_stats = tint._wavefront_film(s, m, c, cfg, 0, None, None,
+                                            graphed=True, pixels=block)
+    assert len(built) == 2 and built[1].px.shape[0] == 50
+    # on the CPU a tensor's length moves the last bit of a few of its ops
+    torch.testing.assert_close(part, eager[30:80], rtol=2e-5, atol=2e-6)
+    part_e, part_e_stats = tint._wavefront_film(
+        s, m, c, cfg, 0, None, None, graphed=False, pixels=block)
+    assert torch.equal(part, part_e) and part_stats == part_e_stats
+
     tint._wavefront_film(s, m, c, dataclasses.replace(cfg, spp=2), 0, None,
                          None, graphed=True)
-    assert len(built) == 2 and built[0].graph.step is None
+    assert len(built) == 3 and built[1].graph.step is None

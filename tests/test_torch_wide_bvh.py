@@ -230,16 +230,14 @@ def test_wrappers_take_the_bvh_and_check_the_wide_rows():
     assert ref.any() and not ref.all()
     assert torch.equal(cuda_trace.any_hit(arrs, rays), ref)
     ref = cuda_trace.any_hit_precise_plain(arrs.tri9, rays)
-    for fn in (cuda_trace.any_hit_precise, cuda_trace.any_hit_precise_v1):
-        assert torch.equal(fn(arrs, rays), ref)
+    assert torch.equal(cuda_trace.any_hit_precise(arrs, rays), ref)
     assert not hasattr(cuda_trace, "closest_hit_v1")
     assert not hasattr(cuda_trace, "any_hit_v1")
     deep = dataclasses.replace(arrs, wide_depth=cuda_trace.WIDE_MAX_STACK)
     assert cuda_trace.wide_stack_slots(deep.wide_depth) \
         > cuda_trace.WIDE_MAX_STACK
     meta = rays.to("meta")
-    for fn in (cuda_trace.any_hit, cuda_trace.any_hit_precise,
-               cuda_trace.any_hit_precise_v1):
+    for fn in (cuda_trace.any_hit, cuda_trace.any_hit_precise):
         with pytest.raises(ValueError):      # neither CPU nor CUDA
             fn(arrs, meta)
 

@@ -6,7 +6,7 @@
 //   team_kernel<false, false> (K1)  <- _kernel_closest_fast (with
 //                                   _block_test_fast and the packed-key
 //                                   decode in traverse)
-//   binary_any_hit_kernel<false> (K2) <- _kernel_anyhit (its fast form)
+//   binary_any_hit_kernel     (K2)  <- _kernel_anyhit (its fast form)
 //   team_kernel<true, false>  (K3)  <- _kernel_closest (with _ray_setup,
 //                                   _block_test and _diff_of_products)
 //   team_kernel<true, true>   (K2p) <- _kernel_anyhit (its precise=True form)
@@ -88,8 +88,8 @@
 //     cheap triangles that loses: K2 stays the binary walk, one thread a
 //     ray, which no stage of the team walk beat on the full shadow sets
 //     (PERF.md has every stage's time).  K2p's precise test reads its
-//     vertices as three aligned vector loads in the team walk and nine
-//     scalar ones in the binary walk, and the team walk wins.
+//     vertices as three aligned vector loads in the team walk, where a
+//     binary walk read nine scalar ones, and the team walk won.
 // No shared memory is used.  Built, measured and removed again because they
 // did not pay on this card (PERF.md has each one's time): the stack in
 // shared memory (it costs occupancy); resident blocks whose threads take
@@ -101,12 +101,10 @@
 // ray is occluded if one of its parts finds a hit, so the results are
 // those of the brute-force plain versions bit for bit.
 //
-// binary_any_hit_kernel is K2 and, in its precise form, the walk K2p ran
-// before the team walk: one thread a ray pops a node ref from its own
-// stack, tests both child boxes of an internal node (rows of nodes_f /
+// binary_any_hit_kernel is K2: one thread a ray pops a node ref from its
+// own stack, tests both child boxes of an internal node (rows of nodes_f /
 // nodes_i), pushes the hit children far-first, or tests the triangles of an
-// inline leaf.  Its precise form is kept as the yardstick K2p is timed
-// against; no render path launches it.
+// inline leaf.
 //
 // Fast hit test (K1, K2; the same arithmetic as the plain PyTorch version in
 // ops/cuda_trace.py, term for term and in the same order; build with
@@ -136,9 +134,8 @@
 // before the divide, and t = t_scaled / det > 1e-6.  The bound test uses
 // the ray's own t_max, not the shrinking best t, so that the closest hit is
 // the plain version's: the smallest t among the hits, the lower id on an
-// exact tie.  The axis permutation is folded into the load address (K3,
-// K2p: group k of tri9p; the binary walk: row[3 v + k] of tri9, whose
-// 36-byte rows are not 16-byte aligned, nine scalar __ldg loads).  The box cull keeps the padded
+// exact tie.  The axis permutation is folded into the load address (group
+// k of tri9p).  The box cull keeps the padded
 // far distance and T_SLACK: the precise t is tight, but a triangle lying in
 // a box face can still lose its box to slab rounding.
 //
@@ -308,19 +305,14 @@ __device__ __forceinline__ bool closer(float t, int tri, float best_t,
     return PRECISE ? (best_tri < 0 || lower) : lower;
 }
 
-// Walk the binary BVH for one ray until its first hit in (1e-6, t_max);
-// returns whether there is one.  PRECISE: `tris` is tri9 and the hit test
-// is the watertight shear test; else `tris` is tri_m12 and it is the
-// unit-triangle test.
-template <bool PRECISE>
+// Walk the binary BVH for one ray until its first hit in (1e-6, t_max) by
+// the unit-triangle test of tri_m12; returns whether there is one.
 __device__ __forceinline__ bool walk(const float* __restrict__ nodes_f,
                                      const int* __restrict__ nodes_i,
                                      const float* __restrict__ tris,
                                      int n_tri, const Ray& r, unsigned& visits,
                                      unsigned& tests) {
     float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
-    Shear sh;
-    if constexpr (PRECISE) sh = ray_setup(r);
     int stack[MAX_STACK];
     int sp = 0;
     stack[sp++] = 0;  // ref 0 is the root (a pseudo-root for a one-leaf tree)
@@ -335,24 +327,11 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes_f,
                 if (tri >= n_tri) break;
                 ++tests;
                 float t, u, v;
-                if constexpr (PRECISE) {
-                    const float* row = tris + 9 * (size_t)tri;
-                    float ax[3], ay[3], az[3];
-#pragma unroll
-                    for (int c = 0; c < 3; ++c) {
-                        ax[c] = __ldg(row + 3 * c + sh.kx);
-                        ay[c] = __ldg(row + 3 * c + sh.ky);
-                        az[c] = __ldg(row + 3 * c + sh.kz);
-                    }
-                    if (tri_test_precise(ax, ay, az, sh, r.tmax, t, u, v))
-                        return true;
-                } else {
-                    const float4* row =
-                        reinterpret_cast<const float4*>(tris + 12 * (size_t)tri);
-                    if (tri_test(__ldg(row), __ldg(row + 1), __ldg(row + 2), r,
-                                 t, u, v) && t < r.tmax)
-                        return true;
-                }
+                const float4* row =
+                    reinterpret_cast<const float4*>(tris + 12 * (size_t)tri);
+                if (tri_test(__ldg(row), __ldg(row + 1), __ldg(row + 2), r, t,
+                             u, v) && t < r.tmax)
+                    return true;
             }
             continue;
         }
@@ -799,11 +778,8 @@ team_kernel(int n, const float* __restrict__ rays,
     }
 }
 
-// K2 (tris = tri_m12) and, PRECISE, the binary walk K2p ran before the team
-// walk (tris = tri9): one thread a ray walks the binary tree (nodes_f,
-// nodes_i).  The precise form is the yardstick of K2p's times, on no render
-// path.
-template <bool PRECISE>
+// K2 (tris = tri_m12): one thread a ray walks the binary tree (nodes_f,
+// nodes_i).
 __global__ void __launch_bounds__(BLOCK_THREADS)
 binary_any_hit_kernel(int n, const float* __restrict__ rays,
                   const float* __restrict__ nodes_f,
@@ -816,7 +792,7 @@ binary_any_hit_kernel(int n, const float* __restrict__ rays,
     unsigned visits = 0, tests = 0;
     bool occluded = false;
     if (r.tmax >= 0.0f)  // t_max < 0: inactive ray, reports false
-        occluded = walk<PRECISE>(nodes_f, nodes_i, tris, n_tri, r, visits, tests);
+        occluded = walk(nodes_f, nodes_i, tris, n_tri, r, visits, tests);
     occ_out[i] = occluded;
     if (counters != nullptr && (visits | tests)) {
         atomicAdd(counters, (u64)visits);
@@ -914,35 +890,17 @@ extern "C" int launch_any_hit_precise(int n, const void* rays,
                                    counters, stream);
 }
 
-template <bool PRECISE>
-static int launch_binary(int n, const void* rays, const void* nodes_f,
-                         const void* nodes_i, const void* tris, int n_tri,
-                         void* occ_out, void* counters, void* stream) {
-    if (n > 0) {
-        binary_any_hit_kernel<PRECISE>
-            <<<blocks_for(n), BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-                n, (const float*)rays, (const float*)nodes_f,
-                (const int*)nodes_i, (const float*)tris, n_tri, (bool*)occ_out,
-                (u64*)counters);
-    }
-    return (int)cudaGetLastError();
-}
-
 extern "C" int launch_any_hit(int n, const void* rays, const void* nodes_f,
                               const void* nodes_i, const void* tri_m12,
                               int n_tri, void* occ_out, void* counters,
                               void* stream) {
-    return launch_binary<false>(n, rays, nodes_f, nodes_i, tri_m12, n_tri,
-                                occ_out, counters, stream);
-}
-
-extern "C" int launch_any_hit_precise_v1(int n, const void* rays,
-                                         const void* nodes_f,
-                                         const void* nodes_i, const void* tri9,
-                                         int n_tri, void* occ_out,
-                                         void* counters, void* stream) {
-    return launch_binary<true>(n, rays, nodes_f, nodes_i, tri9, n_tri, occ_out,
-                               counters, stream);
+    if (n > 0) {
+        binary_any_hit_kernel<<<blocks_for(n), BLOCK_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+            n, (const float*)rays, (const float*)nodes_f, (const int*)nodes_i,
+            (const float*)tri_m12, n_tri, (bool*)occ_out, (u64*)counters);
+    }
+    return (int)cudaGetLastError();
 }
 
 // kernel_launch_info's kernels, in the order of cuda_trace.KERNEL_NAMES.
@@ -950,9 +908,8 @@ extern "C" int kernel_launch_info(int kernel, int n, int* out) {
     switch (kernel) {
         case 0: return occupancy(team_kernel<false, false>, true, n, out);
         case 1: return occupancy(team_kernel<true, false>, true, n, out);
-        case 2: return occupancy(binary_any_hit_kernel<false>, false, n, out);
+        case 2: return occupancy(binary_any_hit_kernel, false, n, out);
         case 3: return occupancy(team_kernel<true, true>, true, n, out);
-        case 4: return occupancy(binary_any_hit_kernel<true>, false, n, out);
     }
     return (int)cudaErrorInvalidValue;
 }

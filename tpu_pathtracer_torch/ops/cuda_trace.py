@@ -19,8 +19,6 @@ and ``LANES`` their lanes (rays, live or dead); a wrapper called while a
 CUDA graph is captured launches nothing, so ``captured_launches`` takes
 its counts back out, and each replay of the graph adds them
 (``count_replay``).
-``any_hit_precise_v1`` launches the binary walk (``tri9``) that K2p
-replaced: the yardstick of its times, called by no render path.
 
 The plain versions are brute force: every live ray against every
 triangle (chunked over rays), with the same hit-test arithmetic as the
@@ -63,7 +61,7 @@ LAUNCHES = collections.Counter()
 LANES = collections.Counter()
 # the closest-hit and the any-hit kernels, by wrapper name
 CLOSEST_KERNELS = ("closest_hit", "closest_hit_precise")
-ANY_HIT_KERNELS = ("any_hit", "any_hit_precise", "any_hit_precise_v1")
+ANY_HIT_KERNELS = ("any_hit", "any_hit_precise")
 
 _LIB = None
 
@@ -174,7 +172,6 @@ def _bind(path: str):
         "trace_kernels_wide_max_stack": [],
     }
     signatures["launch_closest_hit_precise"] = signatures["launch_closest_hit"]
-    signatures["launch_any_hit_precise_v1"] = signatures["launch_any_hit"]
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -220,22 +217,19 @@ def _check_rays(rays, n_tri, counters):
                          "on the rays' device")
 
 
-def _check_binary(bvh, precise, rays, counters):
-    """The binary walk's tables: nodes_f, nodes_i and the (T, 12) tri_m12
-    or, precise, the (T, 9) tri9."""
+def _check_binary(bvh, rays, counters):
+    """The binary walk's tables: nodes_f, nodes_i and the (T, 12)
+    tri_m12."""
     dev = rays.device
     _need(bvh.nodes_f, "nodes_f", dev, torch.float32, 12)
     _need(bvh.nodes_i, "nodes_i", dev, torch.int32, 2)
-    tris = bvh.tri9 if precise else bvh.tri_m12
-    _need(tris, "tri9" if precise else "tri_m12", dev, torch.float32,
-          9 if precise else 12)
+    _need(bvh.tri_m12, "tri_m12", dev, torch.float32, 12)
     if bvh.nodes_f.shape[0] != bvh.nodes_i.shape[0]:
         raise ValueError("nodes_f and nodes_i row counts differ")
-    _check_rays(rays, tris.shape[0], counters)
+    _check_rays(rays, bvh.tri_m12.shape[0], counters)
     if bvh.stack_depth > MAX_STACK:
         raise ValueError(f"BVH needs {bvh.stack_depth} stack slots, the "
                          f"kernels have {MAX_STACK}")
-    return tris
 
 
 def wide_stack_slots(wide_depth: int) -> int:
@@ -262,7 +256,7 @@ def _plain_or_kernel(rays):
 
 # the kernels of kernel_launch_info, in its order
 KERNEL_NAMES = ("closest_hit", "closest_hit_precise", "any_hit",
-                "any_hit_precise", "any_hit_precise_v1")
+                "any_hit_precise")
 
 
 def _outputs(rays, any_hit):
@@ -302,20 +296,20 @@ def _launch(name, bvh, precise, any_hit, rays, counters):
     return out[0] if any_hit else out
 
 
-def _launch_binary(name, bvh, precise, rays, counters):
-    """The binary any-hit walk: nodes_f, nodes_i with tri_m12 or tri9."""
-    tris = _check_binary(bvh, precise, rays, counters)
+def _launch_binary(bvh, rays, counters):
+    """K2, the binary any-hit walk: nodes_f, nodes_i with tri_m12."""
+    _check_binary(bvh, rays, counters)
+    tris = bvh.tri_m12
     occ = torch.empty(rays.shape[1], dtype=torch.bool, device=rays.device)
-    launch = getattr(_library(), "launch_" + name)
     with torch.cuda.device(rays.device):
-        rc = launch(
+        rc = _library().launch_any_hit(
             rays.shape[1], rays.data_ptr(), bvh.nodes_f.data_ptr(),
             bvh.nodes_i.data_ptr(), tris.data_ptr(), tris.shape[0],
             occ.data_ptr(), _ptr(counters),
             torch.cuda.current_stream(rays.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    _count_launch(name, rays.shape[1])
+        raise RuntimeError(f"any_hit launch failed: cudaError {rc}")
+    _count_launch("any_hit", rays.shape[1])
     return occ
 
 
@@ -347,7 +341,7 @@ def any_hit(bvh, rays, counters=None):
     are inactive and report False.  ``counters`` as for ``closest_hit``."""
     if _plain_or_kernel(rays):
         return any_hit_plain(bvh.tri_m12, rays)
-    return _launch_binary("any_hit", bvh, False, rays, counters)
+    return _launch_binary(bvh, rays, counters)
 
 
 def any_hit_precise(bvh, rays, counters=None):
@@ -357,14 +351,6 @@ def any_hit_precise(bvh, rays, counters=None):
     if _plain_or_kernel(rays):
         return any_hit_precise_plain(bvh.tri9, rays)
     return _launch("any_hit_precise", bvh, True, True, rays, counters)
-
-
-def any_hit_precise_v1(bvh, rays, counters=None):
-    """K2p's binary predecessor (``nodes_f``, ``nodes_i``, ``tri9``): the
-    same function, kept to time ``any_hit_precise`` against."""
-    if _plain_or_kernel(rays):
-        return any_hit_precise_plain(bvh.tri9, rays)
-    return _launch_binary("any_hit_precise_v1", bvh, True, rays, counters)
 
 
 def launch_info(name: str, n_rays: int) -> dict:

@@ -14,21 +14,24 @@ Provides:
                             image and its gradients w.r.t. the trainable
                             material columns (traversal detached, lobe,
                             light and roulette choices fixed)
-  * ``release_graphs``   -- frees the CUDA graphs ``loss_and_grads``,
-                            the lockstep and the wavefront renders keep
-                            on a card
+  * ``release_graphs``   -- frees the CUDA graphs ``loss_and_grads`` and
+                            the wavefront renders keep on a card
   * ``train_step``       -- one SGD step on those columns
   * ``TrainState``       -- Adam (optax's arithmetic) with checkpoint and
                             resume, in the JAX package's npz layout
 
+A rank renders its block through the integrator's wavefront
+(``integrator._film``, the AOVs through ``trace_sample``); the
+differentiable pass runs the lockstep ``trace_sample``, every
+``max_depth`` bounce, because autograd takes its backward in lockstep.
 On a CUDA device the JAX package's compiled programs are CUDA graphs:
-``render_sharded`` replays the captured lockstep sample
-(``integrator._SampleGraphs``, the body of ``_accum_chunk_sharded``), and
-``loss_and_grads`` replays its forward and backward captured as one graph
-(``_LossAndGradsGraph``, the counterpart of ``_loss_and_grads_jit``).
-Both are kept from call to call as ``jax.jit`` keeps its programs
-(``render.graphs``), until ``release_graphs``.  On the CPU both run as
-eager ops, the graphs' plain versions.
+``render_sharded`` replays the kept wavefront step (slot "wavefront",
+one capture per tile size), and ``loss_and_grads`` replays its forward
+and backward captured as one graph (``_LossAndGradsGraph``, slot
+"grad", the counterpart of ``_loss_and_grads_jit``).  Both are kept from
+call to call as ``jax.jit`` keeps its programs (``render.graphs``),
+until ``release_graphs``.  On the CPU both run as eager ops, the graphs'
+plain versions.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from ..render import graphs as graphs_mod
 from ..render.graphs import release_graphs  # noqa: F401  (public)
 from ..render.integrator import (CALL_PATH_BUDGET, PATH_STRATEGIES,
                                  RenderConfig, _accum_chunk, _check_config,
-                                 _pixel_grid, _sample_graphs)
+                                 _film, _pixel_grid)
 from ..render.sampler import make_sampler
 from ..scene.types import SceneData, SceneMeta, check_ported, tensors_of
 
@@ -86,22 +89,19 @@ def _pad_pixels(cfg: RenderConfig, n_shards: int, device):
     return pixel_xy, r
 
 
-def _accum_linear(scene, meta, camera, cfg, pixel_xy, graphed: bool = False):
+def _accum_linear(scene, meta, camera, cfg, pixel_xy):
     """Mean linear-RGB estimate over the spp of a block of pixels -> (R, 3):
     the lockstep ``trace_sample``, tiles of at most ``cfg.tile_rays`` lanes
-    (and ``CALL_PATH_BUDGET``) one after another, as eager ops or
-    (``graphed``, on a CUDA device, without autograd) as replays of the
-    captured sample."""
+    (and ``CALL_PATH_BUDGET``) one after another, as eager ops."""
     sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
                            (cfg.width, cfg.height))
     tile = max(1, min(cfg.tile_rays, CALL_PATH_BUDGET))
-    graphs = _sample_graphs(scene, meta, camera, cfg) if graphed else None
     tiles = []
     for k in range(0, pixel_xy.shape[0], tile):
         px = pixel_xy[k:k + tile]
         acc = torch.zeros((px.shape[0], 3), device=px.device)
         tiles.append(_accum_chunk(scene, meta, camera, cfg, sampler, cfg.spp,
-                                  px, 0, acc, graphs))
+                                  px, 0, acc))
     return torch.cat(tiles, 0) / cfg.spp
 
 
@@ -113,19 +113,19 @@ def _block(x, n, rank):
 def render_sharded(scene: SceneData, meta: SceneMeta, camera,
                    cfg: RenderConfig, group=None, device=None):
     """Full forward render with the pixels split over ``group`` ->
-    (H, W, 3) display-encoded image on every rank.  Equal to
-    ``integrator.render`` up to rounding: the samplers are pure functions
-    of (pixel, sample, dim), so the split changes no sample.  On a CUDA
-    device each (tile, sample) replays the captured lockstep sample, kept
-    for the next call of the same configuration (``release_graphs`` frees
-    it)."""
+    (H, W, 3) display-encoded image on every rank.  Each rank renders its
+    block as ``integrator.render`` renders the grid; each lane's path is a
+    pure function of (pixel, sample), so the split changes no sample, and
+    with no group the image is ``render``'s bit for bit.  On a CUDA device
+    the block's tiles replay the kept wavefront step (``release_graphs``
+    frees it)."""
     dev = resolve_device(device)
     return _render_sharded(scene, meta, camera, cfg, group, dev,
                            graphed=dev.type == "cuda")
 
 
 def _render_sharded(scene, meta, camera, cfg, group, dev, graphed: bool):
-    """``render_sharded`` through the captured sample (``graphed``) or as
+    """``render_sharded`` through the kept step graph (``graphed``) or as
     eager ops (the CPU, and the graph's plain version on the card)."""
     _check_config(cfg)
     check_ported(meta)
@@ -133,16 +133,15 @@ def _render_sharded(scene, meta, camera, cfg, group, dev, graphed: bool):
     n, rank = _world(group)
     pixel_xy, r = _pad_pixels(cfg, n, dev)
     with torch.no_grad():
-        mine = _accum_linear(scene, meta, camera, cfg,
-                             _block(pixel_xy, n, rank), graphed=graphed)
+        mine, _ = _film(scene, meta, camera, cfg, 0, cfg.spp, None, graphed,
+                        pixels=_block(pixel_xy, n, rank))
     if n > 1:
         parts = [torch.empty_like(mine) for _ in range(n)]
         dist.all_gather(parts, mine, group=group)
         mine = torch.cat(parts, 0)
     is_path = cfg.strategy in PATH_STRATEGIES
-    # the mean already: finalize's division by 1 leaves it as it is
     img = film_mod.finalize(
-        mine[:r], 1,
+        mine[:r], cfg.spp,
         tone_map=cfg.tone_map if is_path else "none",
         eotf=cfg.eotf if is_path or cfg.strategy == "albedo" else "linear")
     return img.reshape(cfg.height, cfg.width, 3)
@@ -155,8 +154,8 @@ def loss_and_grads(params: dict, scene: SceneData, meta: SceneMeta, camera,
     ``target``: (H*W, 3) linear RGB.  The loss is the sum of squared
     differences over the padded pixel grid (padding rows render pixel
     (0, 0) against a zero target, as in the JAX package) divided by
-    3 x its length; the bounce loop runs all ``max_depth`` bounces
-    (``early_exit=False``).  With a group each rank backpropagates its
+    3 x its length; the lockstep bounce loop runs all ``max_depth``
+    bounces.  With a group each rank backpropagates its
     block and the loss and gradients are all-reduced, so every rank holds
     the full values.  On a CUDA device the forward and backward replay one
     captured CUDA graph, kept for the next call of the same configuration.
@@ -174,7 +173,6 @@ def _loss_and_grads(params, scene, meta, camera, cfg, target, group, dev,
                     graphed: bool):
     """``loss_and_grads`` through the captured graph (``graphed``) or as
     eager ops (the CPU, and the graph's plain version on the card)."""
-    cfg = dataclasses.replace(cfg, early_exit=False)
     _check_config(cfg)
     check_ported(meta)
     n, rank = _world(group)

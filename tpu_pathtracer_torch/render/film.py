@@ -28,8 +28,8 @@ def _cmf_stack() -> np.ndarray:
 
 def cmf_table(device) -> torch.Tensor:
     """(470, 3) CIE x/y/z CMFs as float32 on ``device``: one tensor per
-    device, copied there once (a lockstep sample asks for it, and a
-    captured sample copies nothing from the host)."""
+    device, copied there once (every step and sample asks for it, and a
+    captured step copies nothing from the host)."""
     return _cmf_on(torch.device(device))
 
 

@@ -1,25 +1,23 @@
 """The CUDA graphs kept from call to call, as ``jax.jit`` keeps its
 compiled programs.
 
-One graph a slot: ``"wavefront"`` (``integrator._WavefrontGraph``, the
-wavefront step that ``render_wavefront`` -- ``render``, ``render_accum``'s
-pt, nee and mis, every ``render_progressive`` chunk -- replays),
-``"lockstep"`` (``integrator._SampleGraphs``, the lockstep sample that
-``render_accum``'s AOVs, ``count_rays_one_spp`` and
-``parallel.render_sharded`` replay) and ``"grad"``
+One graph a slot, two slots: ``"wavefront"``
+(``integrator._WavefrontGraph``, the wavefront step that every forward
+path film replays -- ``render``, ``render_accum``'s pt, nee and mis,
+every ``render_progressive`` chunk, ``count_rays_one_spp`` and a rank's
+block of ``parallel.render_sharded``) and ``"grad"``
 (``parallel._LossAndGradsGraph``, ``loss_and_grads``'s forward and
 backward).  A slot's graph is kept under the key it was captured for --
 the arguments a JAX program is specialised on (meta, camera, config,
-device) and the shape and dtype of every tensor it reads -- and a call
-with another key releases it before capturing its own.  A kept graph
-holds its static inputs and its memory pool (the saved activations of
-the grad step, the step's or the bounces' tensors) until
-``release_graphs``.
+device; for the wavefront also the tile's lane count) and the shape and
+dtype of every tensor it reads -- and a call with another key releases
+it before capturing its own.  A kept graph holds its static inputs and
+its memory pool (the saved activations of the grad step, the step's
+tensors) until ``release_graphs``.
 
 ``CAPTURES`` counts, per slot, the graphs ``keep`` built anew: a first
-call of a configuration, or one whose key changed.  The wavefront and
-lockstep graphs capture on their first tile (the lockstep slot once per
-lane count) inside their own ``graphs.capture`` spans.
+call of a configuration, or one whose key changed.  The wavefront graph
+captures on its first tile inside its own ``graphs.capture`` span.
 """
 from __future__ import annotations
 

@@ -2,14 +2,18 @@
 
 Counterpart of ``tpu_pathtracer/render/integrator.py``.  The pt, nee and
 mis strategies render through the regenerative wavefront
-(``_wavefront_init``, ``_wavefront_step``, ``render_wavefront``): each lane
+(``_wavefront_init``, ``_wavefront_step``, ``_wavefront_film``): each lane
 (pixel) carries its own (sample, depth) cursor, and when a path dies the
 lane starts its pixel's next sample in the next step, so lanes stay
-occupied until the tail.  ``trace_sample`` is the lockstep form (every
-lane on the same sample and depth); it renders the AOVs, counts the rays
-of one sample (``count_rays_one_spp``), and its film equals the
-wavefront's.  The per-sample math and the sampler dimension layout are
-those of the JAX package:
+occupied until the tail.  It renders every forward path film: the full
+grid (``render_accum``), a rank's block of pixels
+(``parallel.render_sharded``) and the rays of one sample
+(``count_rays_one_spp``, from its own counts).  ``trace_sample`` is the
+lockstep form (every lane on the same sample and depth, every
+``max_depth`` bounce run): it renders the AOVs, which end at the first
+hit, and the differentiable pass, whose backward autograd takes in
+lockstep; its film equals the wavefront's up to rounding.  The per-sample
+math and the sampler dimension layout are those of the JAX package:
 
   dim 0: hero-wavelength u;  dims 1-2: film uv;
   per bounce b: base = 3 + 10*b --
@@ -19,28 +23,19 @@ those of the JAX package:
 
 The JAX package runs the steps of a tile inside one device program
 (``_wavefront_chunk``), compiled once per configuration.  Here, on a CUDA
-device, ``render_wavefront`` replays one step captured as a CUDA graph
+device, ``_wavefront_film`` replays one step captured as a CUDA graph
 (``_StepGraph``) over static buffers (the tile's pixels, the state and
 the last sample ``spp_end``), a chunk of ``SYNC_EVERY`` steps at a time
 (``_wavefront_chunk``); the host reads the tile's all-done flag after
 each chunk and copies nothing to the device inside one.  The graph is
 kept from call to call with a copy of the scene (``_WavefrontGraph``,
-slot "wavefront" of ``graphs``), so a repeat render and every
-progressive chunk of a configuration replay it.  On the CPU, which has
-no graphs, the steps run as eager ops (``_render_tile_eager``, also the
-graph's plain version on the card).
-Steps after a tile is done change nothing (no lane regenerates, traces or
-finalizes), so both give the same film, rays and steps.
-
-The lockstep programs of the JAX package (``_accum_chunk``,
-``_count_tile_jit``) are, on a CUDA device, replays of one lockstep
-sample captured as a CUDA graph (``_SampleGraph``, per lane count of a
-configuration: ``_SampleGraphs``, kept from call to call by ``graphs``),
-its sample index a 0-d tensor.  The graph runs
-every ``max_depth`` bounce where the eager loop stops once every lane is
-dead (a host read per bounce); a bounce that no lane entered alive adds
-nothing and keeps the wavelengths as they were, so the film and rays are
-the same (``trace_sample``'s ``host_exit``).
+slot "wavefront" of ``graphs``, keyed on the configuration and the
+tile's lane count), so a repeat render and every progressive chunk of a
+configuration replay it.  On the CPU, which has no graphs, the steps run
+as eager ops (``_render_tile_eager``, also the graph's plain version on
+the card).  Steps after a tile is done change nothing (no lane
+regenerates, traces or finalizes), so both give the same film, rays and
+steps.  The AOVs run as eager ops on every device.
 
 Strategy bookkeeping: pt counts every emissive hit; nee counts emissive
 hits only after specular bounces (the camera ray counts as one) and adds
@@ -94,11 +89,6 @@ class RenderConfig:
     eotf: str = "srgb"
     gamut: str = "srgb"
     tile_rays: int = 1 << 18       # lanes per wavefront tile
-    # trace_sample stops bouncing once every lane is dead, a host read per
-    # bounce (its captured form reads nothing: trace_sample's host_exit);
-    # False runs all max_depth bounces (the differentiable pass).  The
-    # wavefront ignores it
-    early_exit: bool = True
     # watertight (Dekker-compensated shear) hit test for every traced ray;
     # None means False
     precise: bool | None = None
@@ -166,43 +156,32 @@ def _s4_zeros(r, device):
     return S4(z, z, z, z)
 
 
-# paths (pixel-samples) per (tile, sample chunk): bounds a tile's lanes and
-# the samples of one lockstep chunk
+# lanes (pixel-samples) of a tile at most
 CALL_PATH_BUDGET = 1 << 18
 
 
 def tile_lanes(cfg: RenderConfig) -> int:
-    """Lanes (pixels) per tile."""
+    """Lanes (pixels) per tile of the full grid."""
     return min(cfg.tile_rays, cfg.width * cfg.height, CALL_PATH_BUDGET)
 
 
-def render_plan(cfg: RenderConfig):
-    """(tile_px, chunk_spp) sizing of the lockstep render loop."""
-    tile = tile_lanes(cfg)
-    return tile, max(1, min(cfg.spp, CALL_PATH_BUDGET // tile))
-
-
-def _padded_pixels(cfg, device):
-    """Pixel coords padded with copies of pixel 0 to whole tiles ->
-    ((n_tiles * tile, 2) i32, n_tiles)."""
-    n_px = cfg.width * cfg.height
-    pixel_xy = _pixel_grid(cfg.width, cfg.height, device)
-    tile = tile_lanes(cfg)
-    n_tiles = -(-n_px // tile)
-    pad = n_tiles * tile - n_px
-    if pad:
-        pixel_xy = torch.cat(
-            [pixel_xy,
-             torch.zeros((pad, 2), dtype=torch.int32, device=device)], 0)
-    return pixel_xy, n_tiles
-
-
-def _padded_accum(accum_init, n_px, n_rows, device):
-    ai = torch.zeros((n_rows, 3), device=device)
+def _tiles(cfg, pixels, accum_init, device):
+    """``pixels`` (the full grid where None) and their film ``accum_init``
+    (zeros where None) in tiles of min(``tile_lanes``, len(pixels)) lanes,
+    the last padded with copies of pixel (0, 0) and zero film -> (tile
+    lanes, len(pixels), padded pixels, padded film)."""
+    if pixels is None:
+        pixels = _pixel_grid(cfg.width, cfg.height, device)
+    n_px = pixels.shape[0]
+    tile = min(tile_lanes(cfg), n_px)
+    pad = (-n_px) % tile
+    film = torch.zeros((n_px + pad, 3), device=device)
     if accum_init is not None:
-        ai[:n_px] = torch.as_tensor(accum_init, dtype=torch.float32,
-                                    device=device)
-    return ai
+        film[:n_px] = torch.as_tensor(accum_init, dtype=torch.float32,
+                                      device=device)
+    if pad:
+        pixels = torch.cat([pixels, pixels.new_zeros((pad, 2))], 0)
+    return tile, n_px, pixels, film
 
 
 def _v3_stack(v: V3):
@@ -210,19 +189,12 @@ def _v3_stack(v: V3):
 
 
 def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
-                 sample_idx, with_ray_count: bool = False,
-                 host_exit: bool = True):
+                 sample_idx):
     """Trace one spectral sample for every pixel in lockstep -> rgb (R, 3).
 
-    The albedo and normal strategies return their AOV at the first hit.
-    with_ray_count: also return the number of rays traced (camera +
-    continuation + NEE shadow rays), an int64 scalar tensor.
-    With ``cfg.early_exit`` the bounce loop stops once every lane is dead,
-    by a host read per bounce; ``host_exit=False`` (the form a CUDA graph
-    captures) runs every bounce instead and keeps the wavelengths of a
-    bounce that no lane entered alive (a dead lane's dispersive glass hit
-    would collapse them), the one state of such a bounce that reaches the
-    film: the film and rays are the early-exit loop's."""
+    The albedo and normal strategies return their AOV at the first hit;
+    pt, nee and mis run all ``max_depth`` bounces (a lane that died adds
+    nothing more), with no host read."""
     r = pixel_xy.shape[0]
     dev = pixel_xy.device
     strategy = cfg.strategy
@@ -264,11 +236,8 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
             it.shading_n))
 
     alive = it.valid & bsdf_mod.is_bsdf_material(scene, it)
-    n_rays = torch.full((), r, dtype=torch.int64, device=dev)
 
-    depth = 0
-    while depth < cfg.max_depth and (not cfg.early_exit or not host_exit
-                                     or bool(alive.any())):
+    for depth in range(cfg.max_depth):
         base = 3 + DIMS_PER_BOUNCE * depth
         frame = make_frame(it.shading_n, it.tangent)
         wo_t = to_frame(frame, it.wo)
@@ -279,10 +248,7 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
         uc3 = sampler.get_1d(pixel_xy, sample_idx, base + 4)
         ms = bsdf_mod.sample_material(scene, meta, it, frame, wo_t, uc, uv2,
                                       wl, uc2=uc2, uc3=uc3)
-        if cfg.early_exit and not host_exit:
-            wl = wl._replace(pdf=sel(alive.any(), ms.wl.pdf, wl.pdf))
-        else:
-            wl = ms.wl
+        wl = ms.wl
 
         # NEE at non-specular vertices
         if strategy in ("nee", "mis"):
@@ -296,13 +262,11 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
                                           precise=precise)
             radiance = _madd(radiance, nee_it.valid,
                              throughput * nee.contribution * nee.mis_weight)
-            n_rays = n_rays + nee_it.valid.sum()
 
         # BSDF-sampled continuation ray
         wi = from_frame(frame, ms.wi_t)
         next_o = _offset_origin(it.position, it.geo_n, wi)
         cont = alive & ms.sampled & (ms.pdf > 0.0)
-        n_rays = n_rays + cont.sum()
         hit2 = trace.intersect_scene(scene, next_o, wi, BIG_T, active=cont,
                                      precise=precise)
         it2 = make_interaction(scene, hit2, next_o, wi)
@@ -351,162 +315,19 @@ def trace_sample(scene, meta, camera, cfg: RenderConfig, sampler, pixel_xy,
                          throughput)
         alive = alive & survive
         it = it2
-        depth += 1
 
-    rgb = _v3_stack(film_mod.spectral_to_rgb(
+    return _v3_stack(film_mod.spectral_to_rgb(
         radiance, wl, gamut=_out_gamut(cfg), exposure=cfg.exposure))
-    if with_ray_count:
-        return rgb, n_rays
-    return rgb
 
 
 def _accum_chunk(scene, meta, camera, cfg, sampler, chunk_spp, px_tile,
-                 spp_base, accum, graphs=None):
-    """accum + the linear-RGB estimates of chunk_spp samples of one tile:
-    eager ops, or with ``graphs`` (the kept ``_SampleGraphs``, on a CUDA
-    device) replays of the captured sample."""
-    if graphs is not None:
-        return graphs.accumulate(px_tile,
-                                 range(spp_base, spp_base + chunk_spp),
-                                 accum)
+                 spp_base, accum):
+    """accum + the linear-RGB estimates of chunk_spp samples of one tile,
+    as eager ops."""
     for i in range(chunk_spp):
         accum = accum + trace_sample(scene, meta, camera, cfg, sampler,
                                      px_tile, spp_base + i)
     return accum
-
-
-class _SampleGraph:
-    """One lockstep sample (``trace_sample`` with ``host_exit=False``)
-    captured as a CUDA graph.
-
-    It reads its static buffers -- the tile's pixels ``px`` and the sample
-    index ``sample``, a 0-d int64 tensor, the one value that changes from
-    replay to replay -- and its last ops add the sample's rgb into the
-    tile's film ``film`` and (pt, nee, mis) its traced rays into
-    ``n_rays``.  Built on the first (tile, sample) it serves: that sample
-    runs eagerly on a side stream (the warm-up: it builds the kernels and
-    the per-device tables; its result is kept and its launches count as
-    any sample's), then the sample is captured.  The capture launches
-    nothing; each replay adds the wrappers' counts of the capture to
-    ``cuda_trace.LAUNCHES`` and ``LANES``.  ``release`` frees the graph and
-    its memory pool."""
-
-    def __init__(self, scene, meta, camera, cfg, sampler, px, sample_idx,
-                 accum):
-        dev = px.device
-        counted = cfg.strategy in PATH_STRATEGIES
-        with torch.no_grad(), torch.cuda.device(dev):
-            self.px = px.clone()
-            self.sample = torch.full((), sample_idx, dtype=torch.int64,
-                                     device=dev)
-            self.film = accum.clone()
-            self.n_rays = torch.zeros((), dtype=torch.int64, device=dev)
-
-            def sample():
-                out = trace_sample(scene, meta, camera, cfg, sampler,
-                                   self.px, self.sample,
-                                   with_ray_count=counted, host_exit=False)
-                if counted:
-                    out, n = out
-                    self.n_rays.add_(n)
-                self.film.add_(out)
-
-            side = torch.cuda.Stream(device=dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                sample()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with cuda_trace.captured_launches() as self.recorded:
-                with torch.cuda.graph(self.graph):
-                    sample()
-
-    def load(self, px, accum) -> None:
-        """The next tile: its pixels and film; the ray count starts at 0."""
-        self.px.copy_(px)
-        self.film.copy_(accum)
-        self.n_rays.zero_()
-
-    def replay(self, sample_idx: int) -> None:
-        self.sample.fill_(sample_idx)
-        self.graph.replay()
-        cuda_trace.count_replay(self.recorded)
-
-    def release(self) -> None:
-        self.graph.reset()
-        self.px = self.sample = self.film = self.n_rays = None
-
-
-class _KeptScene:
-    """What a kept graph of one configuration reads besides its own
-    buffers: a copy of the scene's tensors, whose addresses the capture
-    bakes in and into which each call copies its scene's values
-    (``load_scene``), and the configuration's sampler."""
-
-    def __init__(self, scene, meta, camera, cfg):
-        with torch.no_grad():
-            self.scene = scene.map(torch.clone)
-        self.args = (meta, camera, cfg, make_sampler(
-            cfg.sampler, cfg.seed, cfg.spp, (cfg.width, cfg.height)))
-
-    def load_scene(self, scene) -> None:
-        with torch.no_grad():
-            for dst, src in zip(tensors_of(self.scene), tensors_of(scene)):
-                dst.copy_(src)
-
-
-class _SampleGraphs(_KeptScene):
-    """The captured lockstep samples of one configuration: the scene's
-    copy, the sampler, and one ``_SampleGraph`` per lane count (a call's
-    last or padded tile may be shorter), each captured on the first tile
-    of its count.  Kept from call to call in the "lockstep" slot of
-    ``graphs`` (``_sample_graphs``).  ``release`` frees the graphs and the
-    copy."""
-
-    def __init__(self, scene, meta, camera, cfg):
-        super().__init__(scene, meta, camera, cfg)
-        self.by_lanes = {}
-
-    def _run(self, px, samples, accum) -> _SampleGraph:
-        samples = list(samples)
-        graph = self.by_lanes.get(px.shape[0])
-        if graph is None:
-            meta, camera, cfg, sampler = self.args
-            with telemetry.span("graphs.capture", slot="lockstep"):
-                graph = self.by_lanes[px.shape[0]] = _SampleGraph(
-                    self.scene, meta, camera, cfg, sampler, px,
-                    samples.pop(0), accum)
-        else:
-            graph.load(px, accum)
-        for s in samples:
-            graph.replay(s)
-        return graph
-
-    def accumulate(self, px, samples, accum):
-        """accum + the rgb of ``samples`` of the tile ``px`` -> (R, 3)."""
-        return self._run(px, samples, accum).film.clone()
-
-    def count(self, px, sample_idx: int):
-        """The rays traced by one sample of the tile ``px`` -> 0-d int64."""
-        zero = torch.zeros((px.shape[0], 3), device=px.device)
-        return self._run(px, [sample_idx], zero).n_rays.clone()
-
-    def release(self) -> None:
-        for graph in self.by_lanes.values():
-            graph.release()
-        self.by_lanes.clear()
-        self.scene = None
-
-
-def _sample_graphs(scene, meta, camera, cfg) -> _SampleGraphs:
-    """The kept lockstep samples of this configuration (captured anew, the
-    ones kept before released, for another), with ``scene``'s values
-    copied in."""
-    key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene))
-    kept = graphs_mod.keep("lockstep", key, lambda: _SampleGraphs(
-        scene, meta, camera, cfg))
-    kept.load_scene(scene)
-    return kept
 
 
 # the device counts a wavefront state carries, each summed over the lanes
@@ -821,24 +642,28 @@ class _StepGraph:
         self.px = self.spp_end = self.state = self.leaves = None
 
 
-class _WavefrontGraph(_KeptScene):
-    """The captured wavefront step of one configuration: the scene's copy,
-    the spectral table (a static buffer filled from the scene's spectra
-    at each call), the sampler and one ``_StepGraph``, captured on the
-    first tile the entry serves (every tile of a configuration has
-    ``tile_lanes`` lanes).  Kept from call to call in the "wavefront" slot
+class _WavefrontGraph:
+    """The captured wavefront step of one configuration and tile size: a
+    copy of the scene's tensors, whose addresses the capture bakes in and
+    into which each call copies its scene's values (``load_scene``), the
+    spectral table (a static buffer filled from the scene's spectra at
+    each call), the sampler and one ``_StepGraph``, captured on the first
+    tile the entry serves.  Kept from call to call in the "wavefront" slot
     of ``graphs`` (``_wavefront_graph``), as ``jax.jit`` keeps
     ``_wavefront_chunk``.  ``release`` frees the graph and the copy."""
 
     def __init__(self, scene, meta, camera, cfg):
-        super().__init__(scene, meta, camera, cfg)
         with torch.no_grad():
+            self.scene = scene.map(torch.clone)
             self.table = _spectral_table(self.scene)
+        self.args = (meta, camera, cfg, make_sampler(
+            cfg.sampler, cfg.seed, cfg.spp, (cfg.width, cfg.height)))
         self.step = None
 
     def load_scene(self, scene) -> None:
-        super().load_scene(scene)
         with torch.no_grad():
+            for dst, src in zip(tensors_of(self.scene), tensors_of(scene)):
+                dst.copy_(src)
             self.table.copy_(_spectral_table(scene))
 
     def run_tile(self, px, accum, spp_start: int, spp_end: int) -> _StepGraph:
@@ -862,12 +687,13 @@ class _WavefrontGraph(_KeptScene):
         self.step = self.scene = self.table = None
 
 
-def _wavefront_graph(scene, meta, camera, cfg) -> _WavefrontGraph:
-    """The kept wavefront step of this configuration (captured anew, the
-    one kept before released, for another), with ``scene``'s values
-    copied in (span ``graphs.lookup``)."""
+def _wavefront_graph(scene, meta, camera, cfg, lanes: int) -> _WavefrontGraph:
+    """The kept wavefront step of this configuration and tile of ``lanes``
+    lanes (captured anew, the one kept before released, for another), with
+    ``scene``'s values copied in (span ``graphs.lookup``)."""
     with telemetry.span("graphs.lookup", slot="wavefront"):
-        key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene))
+        key = (meta, camera, cfg, scene.device, graphs_mod.shapes_of(scene),
+               lanes)
         kept = graphs_mod.keep("wavefront", key, lambda: _WavefrontGraph(
             scene, meta, camera, cfg))
         kept.load_scene(scene)
@@ -899,38 +725,34 @@ def render_wavefront(scene, meta, camera, cfg: RenderConfig,
     if cfg.strategy not in PATH_STRATEGIES:
         raise ValueError("the wavefront renders pt, nee and mis; "
                          f"got {cfg.strategy!r}")
-    check_ported(meta)
-    accum, stats = _wavefront_film(scene, meta, camera, cfg, spp_start,
-                                   spp_end, accum_init,
-                                   graphed=scene.device.type == "cuda")
-    return (accum, stats) if with_stats else accum
+    return render_accum(scene, meta, camera, cfg, spp_start=spp_start,
+                        spp_end=spp_end, accum_init=accum_init,
+                        with_stats=with_stats)
 
 
 def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
-                    accum_init, graphed: bool):
-    """``render_wavefront``'s tile loop -> (film, RenderStats): each tile's
-    steps replayed from the kept captured graph (``graphed``, on a CUDA
-    device) or run as eager ops (the CPU, and the graph's plain version on
-    the card).  Span ``wavefront.film``, with the call's rays
-    (``n_closest``, ``n_shadow``), steps and the lanes its traversal
-    launches covered (``closest_lanes``, ``any_hit_lanes``), the lanes
-    shaded by a BSDF material against the lanes the kinds' samples ran
-    over (``n_shaded``, ``bsdf_lanes``) and, with an environment light,
-    the escapes to it and the NEE lanes sent to it against the lanes its
-    lookups ran over (``n_escape``, ``n_env_nee``, ``env_lanes``); a
-    ``wavefront.tile`` span for each tile."""
+                    accum_init, graphed: bool, pixels=None):
+    """The wavefront's tile loop over ``pixels`` (the full grid where None)
+    -> (film, RenderStats): each tile's steps replayed from the kept
+    captured graph of its lane count (``graphed``, on a CUDA device) or
+    run as eager ops (the CPU, and the graph's plain version on the card).
+    Span ``wavefront.film``, with the call's rays (``n_closest``,
+    ``n_shadow``), steps and the lanes its traversal launches covered
+    (``closest_lanes``, ``any_hit_lanes``), the lanes shaded by a BSDF
+    material against the lanes the kinds' samples ran over (``n_shaded``,
+    ``bsdf_lanes``) and, with an environment light, the escapes to it and
+    the NEE lanes sent to it against the lanes its lookups ran over
+    (``n_escape``, ``n_env_nee``, ``env_lanes``); a ``wavefront.tile`` span
+    for each tile."""
     with telemetry.span("wavefront.film") as film_span:
         lanes0 = cuda_trace.lanes_by_kind()
         dev = scene.device
         spp_end = cfg.spp if spp_end is None else spp_end
-        n_px = cfg.width * cfg.height
-        tile = tile_lanes(cfg)
-        pixel_xy, n_tiles = _padded_pixels(cfg, dev)
-        ai = _padded_accum(accum_init, n_px, n_tiles * tile, dev)
+        tile, n_px, pixel_xy, ai = _tiles(cfg, pixels, accum_init, dev)
 
         kept = None
         if graphed and spp_start < spp_end:
-            kept = _wavefront_graph(scene, meta, camera, cfg)
+            kept = _wavefront_graph(scene, meta, camera, cfg, tile)
         else:
             sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
                                    (cfg.width, cfg.height))
@@ -939,7 +761,7 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
         names = _counts_of(meta, cfg)
         sums = [torch.zeros((), dtype=torch.int64, device=dev)] * len(names)
         n_steps = 0
-        for k in range(n_tiles):
+        for k in range(pixel_xy.shape[0] // tile):
             with telemetry.span("wavefront.tile", k=k):
                 px_tile = pixel_xy[k * tile:(k + 1) * tile]
                 ai_tile = ai[k * tile:(k + 1) * tile]
@@ -970,52 +792,52 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
         **counts)
 
 
+def _aov_film(scene, meta, camera, cfg, spp_start, spp_end, accum_init,
+              pixels=None):
+    """The AOVs' film of ``pixels`` (the full grid where None):
+    ``trace_sample`` per (tile, sample), in sample order, as eager ops on
+    every device."""
+    spp_end = cfg.spp if spp_end is None else spp_end
+    tile, n_px, pixel_xy, ai = _tiles(cfg, pixels, accum_init, scene.device)
+    sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
+                           (cfg.width, cfg.height))
+    films = [_accum_chunk(scene, meta, camera, cfg, sampler,
+                          spp_end - spp_start, pixel_xy[k:k + tile],
+                          spp_start, ai[k:k + tile])
+             for k in range(0, pixel_xy.shape[0], tile)]
+    return torch.cat(films, 0)[:n_px]
+
+
+def _film(scene, meta, camera, cfg, spp_start, spp_end, accum_init,
+          graphed: bool, pixels=None):
+    """The linear-RGB film sum of ``pixels`` (the full grid where None)
+    over samples [spp_start, spp_end) -> (film, RenderStats, or None for
+    an AOV): pt, nee and mis through the wavefront (``_wavefront_film``),
+    the AOVs through ``trace_sample`` (``_aov_film``)."""
+    if cfg.strategy in PATH_STRATEGIES:
+        return _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
+                               accum_init, graphed, pixels)
+    return _aov_film(scene, meta, camera, cfg, spp_start, spp_end,
+                     accum_init, pixels), None
+
+
 def render_accum(scene, meta, camera, cfg: RenderConfig, spp_start: int = 0,
                  spp_end: int | None = None, accum_init=None,
                  with_stats: bool = False):
     """Linear-RGB film sum over samples [spp_start, spp_end) -> (H*W, 3).
 
     pt, nee and mis go through the regenerative wavefront (the identical
-    film at fewer traced lanes); the AOVs through ``trace_sample``, one
-    (tile, sample chunk) at a time, on a CUDA device as replays of the
-    captured sample, which is kept for the next call of the same
-    configuration (``graphs.release_graphs`` frees it).  ``with_stats``
-    needs a path strategy."""
-    if cfg.strategy in PATH_STRATEGIES:
-        return render_wavefront(scene, meta, camera, cfg, spp_start=spp_start,
-                                spp_end=spp_end, accum_init=accum_init,
-                                with_stats=with_stats)
+    film at fewer traced lanes), on a CUDA device as replays of the
+    captured step, which is kept for the next call of the same
+    configuration (``graphs.release_graphs`` frees it); the AOVs through
+    ``trace_sample``.  ``with_stats`` needs a path strategy."""
     _check_config(cfg)
     check_ported(meta)
-    if with_stats:
+    if with_stats and cfg.strategy not in PATH_STRATEGIES:
         raise ValueError("ray statistics are kept for pt, nee and mis only")
-    return _aov_film(scene, meta, camera, cfg, spp_start, spp_end,
-                     accum_init, graphed=scene.device.type == "cuda")
-
-
-def _aov_film(scene, meta, camera, cfg, spp_start, spp_end, accum_init,
-              graphed: bool):
-    """``render_accum``'s lockstep loop over (sample chunk, tile): each
-    chunk replays the captured sample (``graphed``, on a CUDA device) or
-    runs as eager ops (the CPU, and the graph's plain version on the
-    card)."""
-    dev = scene.device
-    spp_end = cfg.spp if spp_end is None else spp_end
-    n_px = cfg.width * cfg.height
-    tile, chunk_spp = render_plan(cfg)
-    pixel_xy, n_tiles = _padded_pixels(cfg, dev)
-    ai = _padded_accum(accum_init, n_px, n_tiles * tile, dev)
-    accums = [ai[k * tile:(k + 1) * tile] for k in range(n_tiles)]
-    sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
-                           (cfg.width, cfg.height))
-    graphs = _sample_graphs(scene, meta, camera, cfg) if graphed else None
-    for s0 in range(spp_start, spp_end, chunk_spp):
-        n_s = min(chunk_spp, spp_end - s0)
-        for k in range(n_tiles):
-            px = pixel_xy[k * tile:(k + 1) * tile]
-            accums[k] = _accum_chunk(scene, meta, camera, cfg, sampler, n_s,
-                                     px, s0, accums[k], graphs)
-    return torch.cat(accums, 0)[:n_px]
+    film, stats = _film(scene, meta, camera, cfg, spp_start, spp_end,
+                        accum_init, graphed=scene.device.type == "cuda")
+    return (film, stats) if with_stats else film
 
 
 def render(scene, meta, camera, cfg: RenderConfig, device=None,
@@ -1039,35 +861,28 @@ def render(scene, meta, camera, cfg: RenderConfig, device=None,
 
 def count_rays_one_spp(scene, meta, camera, cfg: RenderConfig) -> int:
     """Rays traced for sample 0 of every pixel (camera + continuation +
-    NEE shadow rays), through ``trace_sample`` with the render's tiling;
-    padded rows (copies of pixel 0) are counted out.  On a CUDA device
-    each tile replays the captured sample (kept as ``render_accum``
-    keeps it); the count is read once."""
+    NEE shadow rays): the wavefront's own counts (``RenderStats.n_rays``)
+    over samples [0, 1) with the render's tiling, on a CUDA device replays
+    of the configuration's kept step graph; the padded rows (copies of
+    pixel (0, 0)) are counted out by an eager run of their own, which
+    captures no graph."""
     _check_config(cfg)
+    if cfg.strategy not in PATH_STRATEGIES:
+        raise ValueError(f"rays are counted for pt, nee and mis only; got "
+                         f"{cfg.strategy!r}")
     check_ported(meta)
     return _count_rays(scene, meta, camera, cfg,
                        graphed=scene.device.type == "cuda")
 
 
 def _count_rays(scene, meta, camera, cfg, graphed: bool) -> int:
-    """``count_rays_one_spp`` through the captured sample (``graphed``) or
+    """``count_rays_one_spp`` through the kept step graph (``graphed``) or
     eager ops (the CPU, and the graph's plain version on the card)."""
-    dev = scene.device
-    n_px = cfg.width * cfg.height
-    tile, _ = render_plan(cfg)
-    pixel_xy, n_tiles = _padded_pixels(cfg, dev)
-    sampler = make_sampler(cfg.sampler, cfg.seed, cfg.spp,
-                           (cfg.width, cfg.height))
-    graphs = _sample_graphs(scene, meta, camera, cfg) if graphed else None
-
-    def count(px):
-        if graphs is not None:
-            return graphs.count(px, 0)
-        return trace_sample(scene, meta, camera, cfg, sampler, px, 0,
-                            with_ray_count=True)[1]
-
-    total = sum(count(pixel_xy[k * tile:(k + 1) * tile])
-                for k in range(n_tiles))
-    if len(pixel_xy) > n_px:
-        total = total - count(pixel_xy[n_px:])
-    return int(total)
+    _, stats = _wavefront_film(scene, meta, camera, cfg, 0, 1, None, graphed)
+    n_pad = -(cfg.width * cfg.height) % tile_lanes(cfg)
+    if not n_pad:
+        return stats.n_rays
+    pad = torch.zeros((n_pad, 2), dtype=torch.int32, device=scene.device)
+    _, pad_stats = _wavefront_film(scene, meta, camera, cfg, 0, 1, None,
+                                   graphed=False, pixels=pad)
+    return stats.n_rays - pad_stats.n_rays
