@@ -24,6 +24,21 @@ line per phase; any failed check raises and the script exits non-zero.
            x 64 a clock x 1.98 GHz; registers, local bytes and resident
            blocks an SM of each kernel.  Its row in the final "kernels"
            line gives these per launch.
+  bsdf     the material kernels (``csrc/bsdf.cu``, built and timed here;
+           ptxas's lines) on the recorded ``sample_material`` and
+           ``evaluate_material`` inputs of step 2 of an eager MIS render
+           at 800x600 (its first tile, 262,144 lanes): scene 17 (Lambert,
+           clearcoat; the scan cell's kinds) and scene 19 under its sky
+           (Lambert, PBR, clearcoat, plastic; the sky cell's).  Gate: each
+           kernel's every output equal bit for bit to the torch ops it
+           replaces (``_sample_material_ops``, ``_evaluate_material_ops``),
+           one launch a call.  Times: each kernel's device ms
+           (``device_ms``, 20 launches queued), and the torch ops' device
+           ms and device ops for the same call (``profile_steps``), beside
+           the byte bound (a lane's columns read once and its outputs
+           written once at 3.35 TB/s; the material rows are cached);
+           registers, local bytes and resident blocks an SM.  Its rows in
+           the final "kernels" line give these per launch.
   kernels  scene 17 at 1024x1024 (table_res 64): the closest-hit and any-hit
            kernels, fast (K1, K2) and precise (K3, K2p), against their plain
            PyTorch versions on the card.  Closest hit: camera rays of the
@@ -76,7 +91,7 @@ line per phase; any failed check raises and the script exits non-zero.
            after ``release_graphs()``, and in a profiled replay the
            traversal kernels of the trace equal the launches the capture
            recorded, which holds ten Z-Sobol draw launches (MIS: ten draw
-           calls a step).  Reports ms a step, Mray/s and peak device memory of
+           calls a step) and one of each material kernel.  Reports ms a step, Mray/s and peak device memory of
            each way, the capture's seconds, the memory allocated and
            reserved before, with the kept graph and after its release,
            and a steady step of each (device ms, busy share, device ops;
@@ -790,7 +805,11 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
     ``profile_steps``: device ms, busy share, device ops.
     Gate: in a profiled replay the traversal kernels of the trace equal
     the launches the capture recorded, which are the step's kernels once
-    each and its ten Z-Sobol draw calls (MIS) ten draw launches."""
+    each (the traversal kernels, the two material kernels) and its ten
+    Z-Sobol draw calls (MIS) ten draw launches."""
+    from tpu_pathtracer_torch.ops.bsdf_kernels import EVAL_NAME as BSDF_EVAL
+    from tpu_pathtracer_torch.ops.bsdf_kernels import \
+        SAMPLE_NAME as BSDF_SAMPLE
     from tpu_pathtracer_torch.render.sampler import KERNEL_NAME as DRAW
     from tpu_pathtracer_torch.render.sampler import make_sampler
 
@@ -836,7 +855,8 @@ def check_graph(integ, cuda_trace, scene, meta, cam, cfg):
              capture_s=capture_s, recorded_launches_per_replay=recorded,
              traced_kernels_per_replay=traced, steady_step=steady,
              top_kernels_replayed=replay["top_kernels"][:6])
-        if recorded != {**{k: 1 for k in names}, DRAW: 10} \
+        if recorded != {**{k: 1 for k in names}, DRAW: 10,
+                        BSDF_SAMPLE: 1, BSDF_EVAL: 1} \
                 or traced != len(names):
             raise AssertionError(f"graph: the capture recorded {recorded}, "
                                  f"a profiled replay traced {traced} "
@@ -1313,6 +1333,156 @@ def check_sampler(integ, dev) -> dict:
                        bound_by="bytes" if bytes_ms >= ops_ms else "int32 ops",
                        library_ms=None)
     return row
+
+
+# bytes a lane of the material kernels reads and writes: its material id,
+# its float columns (31 for a sample, 25 for an eval), two spectra of four
+# wavelengths at most; f, wi, pdf and the wavelength pdfs and two flags
+# (sample) or f and pdf (eval)
+BSDF_SAMPLE_BYTES = 4 + 31 * 4 + 2 * 16 + 12 * 4 + 2
+BSDF_EVAL_BYTES = 4 + 25 * 4 + 2 * 16 + 5 * 4
+BSDF_SOURCE = "tpu_pathtracer_torch/csrc/bsdf.cu"
+# (set, scene): the render cells' material kinds
+BSDF_SETS = (("scan", 17), ("sky", 19))
+
+
+class _Recorded(Exception):
+    """Ends a render once the call a phase needs is recorded."""
+
+
+def record_material_calls(integ, scene, meta, cam, cfg, step: int) -> dict:
+    """The arguments of ``sample_material`` and ``evaluate_material`` at
+    wavefront step ``step`` (0: the camera rays') of ``cfg``'s eager render
+    of its first tile: {"sample": (args, kwargs), "eval": (args, kwargs)}."""
+    from tpu_pathtracer_torch.render import bsdf
+
+    real = {"sample": bsdf.sample_material, "eval": bsdf.evaluate_material}
+    seen, calls = {"sample": 0, "eval": 0}, {}
+
+    def recorder(kind):
+        def call(*args, **kwargs):
+            if seen[kind] == step:
+                calls[kind] = (args, kwargs)
+            seen[kind] += 1
+            if len(calls) == 2:
+                raise _Recorded
+            return real[kind](*args, **kwargs)
+        return call
+
+    try:
+        bsdf.sample_material = recorder("sample")
+        bsdf.evaluate_material = recorder("eval")
+        with torch.no_grad():
+            integ._wavefront_film(scene, meta, cam, cfg, 0, None, None,
+                                  graphed=False)
+    except _Recorded:
+        pass
+    finally:
+        bsdf.sample_material = real["sample"]
+        bsdf.evaluate_material = real["eval"]
+    return calls
+
+
+def check_bsdf(integ, scene_at, dev) -> list:
+    """The bsdf phase: the material kernels built from their source
+    (timed, ptxas's lines), then on each of ``BSDF_SETS`` a step's sample
+    and eval call against the torch ops, bit for bit, timed with them
+    beside the bound.  Returns the kernels' rows of the final "kernels"
+    line (per launch, at the step's lanes: the scan set's)."""
+    from tpu_pathtracer_torch.ops import bsdf_kernels, cuda_trace
+    from tpu_pathtracer_torch.render import bsdf
+
+    lib_path = cuda_trace.library_path(bsdf_kernels.KERNEL_SOURCE)
+    if os.path.exists(lib_path):
+        os.remove(lib_path)           # build from this checkout's source
+    t0 = time.perf_counter()
+    _, log = cuda_trace.build(bsdf_kernels.KERNEL_SOURCE)
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "Compiling entry" in ln or "registers" in ln
+             or "stack frame" in ln]
+    emit("bsdf", sub="build", seconds=time.perf_counter() - t0,
+         ptxas=ptxas)
+    rows = []
+    for name, n_scene in BSDF_SETS:
+        scene, meta, cam = scene_at(n_scene, 800, 600)
+        cfg = integ.RenderConfig(width=800, height=600, spp=64, max_depth=16)
+        calls = record_material_calls(integ, scene, meta, cam, cfg, 2)
+        (s_args, s_kw), (e_args, e_kw) = calls["sample"], calls["eval"]
+        lanes = s_args[5].shape[0]
+        kinds = [k for k in meta.present_mat_kinds if k in bsdf.SAMPLED_KINDS]
+
+        def kernel_sample():
+            return bsdf.sample_material(*s_args, **s_kw)
+
+        def kernel_eval():
+            return bsdf.evaluate_material(*e_args, **e_kw)
+
+        def ops_sample():
+            return bsdf._sample_material_ops(*s_args, s_kw["uc2"],
+                                             s_kw["uc3"])
+
+        def ops_eval():
+            return bsdf._evaluate_material_ops(*e_args, **e_kw)
+
+        failed = []
+        with torch.no_grad():
+            cuda_trace.reset_launch_counts()
+            got, want = kernel_sample(), ops_sample()
+            fe, pe = kernel_eval()
+            fe_t, pe_t = ops_eval()
+            torch.cuda.synchronize()
+            launches = {k: cuda_trace.LAUNCHES[k] for k in (
+                bsdf_kernels.SAMPLE_NAME, bsdf_kernels.EVAL_NAME)}
+            pairs = [("f", got.f.lanes, want.f.lanes),
+                     ("wi_t", (got.wi_t.x, got.wi_t.y, got.wi_t.z),
+                      (want.wi_t.x, want.wi_t.y, want.wi_t.z)),
+                     ("pdf", (got.pdf,), (want.pdf,)),
+                     ("wl_pdf", got.wl.pdf.lanes, want.wl.pdf.lanes),
+                     ("eval_f", fe.lanes, fe_t.lanes),
+                     ("eval_pdf", (pe,), (pe_t,))]
+            for what, gs, ws in pairs:
+                for a, b in zip(gs, ws):
+                    ne = int((a.view(torch.int32) != b.view(torch.int32))
+                             .sum())
+                    if ne:
+                        failed.append((what, ne))
+            for what, a, b in (("sampled", got.sampled, want.sampled),
+                               ("specular", got.specular, want.specular)):
+                if not torch.equal(a, b):
+                    failed.append((what, int((a != b).sum())))
+            del got, want, fe, pe, fe_t, pe_t
+            ms = dict(sample=device_ms(kernel_sample, 20),
+                      eval=device_ms(kernel_eval, 20))
+            ops = dict(sample=profile_steps(ops_sample, 3, dev),
+                       eval=profile_steps(ops_eval, 3, dev))
+        bound_ms = dict(sample=lanes * BSDF_SAMPLE_BYTES / PEAK_BYTES_PER_S
+                        * 1e3, eval=lanes * BSDF_EVAL_BYTES
+                        / PEAK_BYTES_PER_S * 1e3)
+        info = {k: bsdf_kernels.launch_info(k == "eval", lanes)
+                for k in ("sample", "eval")}
+        emit("bsdf", sub=name, scene=n_scene, lanes=lanes, kinds=kinds,
+             launches=launches, bit_equal=not failed, device_ms=ms,
+             ops_device_ms={k: v["device_ms"] for k, v in ops.items()},
+             ops_launches={k: v["launches"] for k, v in ops.items()},
+             bound_ms=bound_ms,
+             kernel_over_bound={k: ms[k] / bound_ms[k] for k in ms},
+             ops_over_kernel={k: ops[k]["device_ms"] / ms[k] for k in ms},
+             launch_info=info)
+        if failed or launches != {bsdf_kernels.SAMPLE_NAME: 1,
+                                  bsdf_kernels.EVAL_NAME: 1}:
+            raise AssertionError(f"bsdf {name}: launches {launches}; "
+                                 f"outputs that differ (what, lanes): "
+                                 f"{failed}")
+        if not rows:
+            rows = [dict(name=kname, route="cuda", source=BSDF_SOURCE,
+                         replaces=None, launches=1, max_abs_err=0.0,
+                         ms=ms[k], plain_ms=ops[k]["device_ms"],
+                         bound_ms=bound_ms[k], bound_by="bytes",
+                         library_ms=None)
+                    for k, kname in (("sample", bsdf_kernels.SAMPLE_NAME),
+                                     ("eval", bsdf_kernels.EVAL_NAME))]
+        del calls, s_args, e_args
+    return rows
 
 
 def grad_column_errors(grads, ref) -> dict:
@@ -1943,6 +2113,9 @@ def main() -> int:
         return s_n.to(device), m_n, dataclasses.replace(c_n, width=w,
                                                        height=h)
 
+    # ---- bsdf: the material kernels against the torch ops ------------------
+    bsdf_rows = check_bsdf(integ, scene_at, dev)
+
     scene, meta, cam = scene_at(17, W, H)
     cfg = integ.RenderConfig(width=W, height=H, spp=4, max_depth=16)
     cfg_precise = dataclasses.replace(cfg, precise=True)
@@ -2142,7 +2315,8 @@ def main() -> int:
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)
-        for name, row in kernel_rows.items()] + [gather_row, sampler_row]}))
+        for name, row in kernel_rows.items()]
+        + [gather_row, sampler_row, *bsdf_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

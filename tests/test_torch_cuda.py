@@ -311,6 +311,150 @@ def test_zsobol_draw_kernel_matches_plain(dev, spp, res):
         sm.get_1d(px, sample.cpu(), dim)
 
 
+class _Recorded(Exception):
+    """Ends a render once the steps a test needs are recorded."""
+
+
+def _material_calls(dev, scene_id, steps):
+    """The arguments of ``sample_material`` and ``evaluate_material`` at
+    wavefront steps ``steps`` (0 is the camera rays' step) of an eager MIS
+    render of scene ``scene_id`` at 512x512, one tile of 262,144 lanes:
+    {"sample": [(args, kwargs), ...], "eval": [...]}."""
+    from tpu_pathtracer_torch.render import bsdf as tbsdf
+    from tpu_pathtracer_torch.render import integrator as tint
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    s, m, c = load_scene(scene_id, 512, 512, table_res=16, device=dev)
+    cfg = tint.RenderConfig(width=512, height=512, spp=4, max_depth=16)
+    calls = {"sample": [], "eval": []}
+    seen = {"sample": 0, "eval": 0}
+    real = {"sample": tbsdf.sample_material, "eval": tbsdf.evaluate_material}
+
+    def recorder(kind):
+        def call(*args, **kwargs):
+            if seen[kind] in steps:
+                calls[kind].append((args, kwargs))
+            seen[kind] += 1
+            if min(seen.values()) > max(steps):
+                raise _Recorded
+            return real[kind](*args, **kwargs)
+        return call
+
+    try:
+        tbsdf.sample_material = recorder("sample")
+        tbsdf.evaluate_material = recorder("eval")
+        with torch.no_grad():
+            tint._wavefront_film(s, m, c, cfg, 0, None, None, graphed=False)
+    except _Recorded:
+        pass
+    finally:
+        tbsdf.sample_material = real["sample"]
+        tbsdf.evaluate_material = real["eval"]
+    assert all(len(v) == len(steps) for v in calls.values())
+    return calls
+
+
+def _assert_bits(got, want, what):
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), (what, k, int((a != b).sum()))
+        else:
+            ne = a.view(torch.int32) != b.view(torch.int32)
+            assert not bool(ne.any()), (
+                what, k, int(ne.sum()), a[ne][:4].tolist(), b[ne][:4].tolist())
+
+
+# the scenes of the material kernels' card test and what each brings
+MATERIAL_SCENES = {17: "Lambert, clearcoat", 19: "PBR, clearcoat, plastic "
+                   "and Lambert under the sky", 6: "smooth metal",
+                   8: "smooth dispersive glass (terminations)",
+                   10: "thin plastic", 11: "rough glass"}
+
+
+@pytest.mark.parametrize("scene_id", sorted(MATERIAL_SCENES))
+def test_material_kernels_match_torch_ops(dev, scene_id):
+    """``bsdf_sample_kernel`` and ``bsdf_eval_kernel`` against the torch
+    ops they replace (``_sample_material_ops``, ``_evaluate_material_ops``)
+    on the card, bit for bit on every output (f, wi_t, pdf, sampled,
+    specular, the wavelength pdfs; f and pdf), on the recorded inputs of
+    steps 1 and 2 of a 262,144-lane tile: each call one launch of its
+    lanes."""
+    from tpu_pathtracer_torch.ops import bsdf_kernels
+    from tpu_pathtracer_torch.render import bsdf as tbsdf
+
+    calls = _material_calls(dev, scene_id, (1, 2))
+    terminated = 0
+    for args, kwargs in calls["sample"]:
+        scene = args[0]
+        assert tbsdf.uses_kernel(scene, dev)
+        cuda_trace.reset_launch_counts()
+        with torch.no_grad():
+            got = tbsdf.sample_material(*args, **kwargs)
+            want = tbsdf._sample_material_ops(*args, kwargs["uc2"],
+                                              kwargs["uc3"])
+        torch.cuda.synchronize()
+        n = args[5].shape[0]
+        assert n == 262_144
+        assert cuda_trace.LAUNCHES[bsdf_kernels.SAMPLE_NAME] == 1
+        assert cuda_trace.LANES[bsdf_kernels.SAMPLE_NAME] == n
+        _assert_bits([*got.f.lanes, got.wi_t.x, got.wi_t.y, got.wi_t.z,
+                      got.pdf, got.sampled, got.specular, *got.wl.pdf.lanes],
+                     [*want.f.lanes, want.wi_t.x, want.wi_t.y, want.wi_t.z,
+                      want.pdf, want.sampled, want.specular,
+                      *want.wl.pdf.lanes], ("sample", scene_id))
+        terminated += int((got.wl.pdf.b == 0).sum())
+    if scene_id == 8:
+        assert terminated > 0
+    for args, kwargs in calls["eval"]:
+        cuda_trace.reset_launch_counts()
+        with torch.no_grad():
+            f, pdf = tbsdf.evaluate_material(*args, **kwargs)
+            f_t, pdf_t = tbsdf._evaluate_material_ops(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert cuda_trace.LAUNCHES[bsdf_kernels.EVAL_NAME] == 1
+        _assert_bits([*f.lanes, pdf], [*f_t.lanes, pdf_t], ("eval", scene_id))
+
+
+def test_material_kernels_launch_once_a_step(dev):
+    """A MIS render on the card launches each material kernel once a step
+    over the tile's lanes, and ``bsdf_lanes`` counts the sample kernel's
+    lanes; the fit's forward (gradients through the material table) and a
+    textured scene keep the torch ops and launch neither."""
+    from tpu_pathtracer_torch import parallel
+    from tpu_pathtracer_torch.ops import bsdf_kernels
+    from tpu_pathtracer_torch.render import bsdf as tbsdf
+    from tpu_pathtracer_torch.render import integrator as tint
+    from tpu_pathtracer_torch.scenes import load_scene
+
+    names = (bsdf_kernels.SAMPLE_NAME, bsdf_kernels.EVAL_NAME)
+    s, m, c = load_scene(17, 64, 48, table_res=16, device=dev)
+    cfg = tint.RenderConfig(width=64, height=48, spp=2, max_depth=6,
+                            tile_rays=1024)
+    cuda_trace.reset_launch_counts()
+    _, stats = tint._wavefront_film(s, m, c, cfg, 0, None, None,
+                                    graphed=False)
+    for k in names:
+        assert cuda_trace.LAUNCHES[k] == stats.n_steps
+        assert cuda_trace.LANES[k] == 1024 * stats.n_steps
+    assert stats.bsdf_lanes == 1024 * stats.n_steps
+    gcfg = tint.RenderConfig(width=16, height=12, spp=1, max_depth=2,
+                             precise=True)
+    cuda_trace.reset_launch_counts()
+    parallel._loss_and_grads(parallel.extract_params(s), s, m, c, gcfg,
+                             torch.zeros(192, 3, device=dev), None, dev,
+                             graphed=False)
+    torch.cuda.synchronize()
+    assert all(cuda_trace.LAUNCHES[k] == 0 for k in names)
+    s3, m3, c3 = load_scene(3, 32, 24, table_res=16, device=dev)
+    cfg3 = dataclasses.replace(cfg, width=32, height=24, strategy="nee")
+    cuda_trace.reset_launch_counts()
+    _, st3 = tint._wavefront_film(s3, m3, c3, cfg3, 0, None, None,
+                                  graphed=False)
+    assert all(cuda_trace.LAUNCHES[k] == 0 for k in names)
+    assert st3.bsdf_lanes == (tint.tile_lanes(cfg3) * st3.n_steps
+                              * tbsdf.n_sampled_kinds(m3))
+
+
 @pytest.mark.parametrize("precise", [False, True], ids=["fast", "precise"])
 def test_loss_and_grads_on_card_match_cpu(dev, precise):
     """The differentiable pass on the card against the CPU's plain
@@ -353,9 +497,9 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
     """``render_wavefront`` on the card replays one captured step: scene 17
     at 64x48, 2 spp, depth 6, in three tiles of 1,024 lanes (the last one
     padded).  Its film equals the eager step loop's bit for bit, with the
-    same rays, steps and kernel launches (each traversal kernel once a
-    step, the Z-Sobol draw kernel ten times: MIS makes ten draw calls a
-    step); it never runs the eager loop; a second call replays the kept graph and
+    same rays, steps and kernel launches (each traversal kernel and each
+    material kernel once a step, the Z-Sobol draw kernel ten times: MIS
+    makes ten draw calls a step); it never runs the eager loop; a second call replays the kept graph and
     does not raise the peak device memory, and after ``release_graphs()``
     the memory in use is what it was before the first call."""
     from tpu_pathtracer_torch.render import graphs
@@ -377,7 +521,7 @@ def test_graph_render_equals_eager_render(dev, precise, monkeypatch):
     assert torch.equal(f1, f0)
     assert st1 == st0 and st0.n_steps >= 3 * tint.SYNC_EVERY
     names = (("closest_hit_precise", "any_hit_precise") if precise
-             else ("closest_hit", "any_hit"))
+             else ("closest_hit", "any_hit")) + ("bsdf_sample", "bsdf_eval")
     assert l1 == l0 == {**{k: st0.n_steps for k in names},
                         tsam.KERNEL_NAME: 10 * st0.n_steps}
 
@@ -482,8 +626,9 @@ def test_env_counts_of_the_kept_graph_equal_the_eager_loops(dev):
     """Scene 19 (four material kinds under a sky) at 64x48, MIS, 2 spp,
     depth 6, tiles of 1,024 lanes: the kept step graph's replays give the
     eager loop's film and every count of ``RenderStats`` (the sky's
-    escapes and NEE lanes, the lanes shaded) and of the ``wavefront.film``
-    span, the traversal launches' lanes included."""
+    escapes and NEE lanes, the lanes shaded against the material kernel's
+    lanes) and of the ``wavefront.film`` span, the traversal launches'
+    lanes included."""
     from tpu_pathtracer_torch import telemetry
     from tpu_pathtracer_torch.render import graphs
     from tpu_pathtracer_torch.render import integrator as tint
@@ -508,7 +653,8 @@ def test_env_counts_of_the_kept_graph_equal_the_eager_loops(dev):
     assert 0 < st0.n_escape <= st0.n_closest
     assert 0 < st0.n_env_nee == st0.n_shadow       # the sky is the one light
     assert st0.env_lanes == 1024 * st0.n_steps
-    assert 0 < st0.n_shaded <= st0.bsdf_lanes == 4 * st0.env_lanes
+    # the material sample kernel runs once a step over the tile's lanes
+    assert 0 < st0.n_shaded <= st0.bsdf_lanes == st0.env_lanes
 
 
 def _grad_case(dev, precise):

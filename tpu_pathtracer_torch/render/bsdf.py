@@ -5,9 +5,13 @@ measured-IOR conductor (metal), the dielectrics (glass: dispersive and
 untinted; plastic: tinted, constant eta; smooth, rough and thin forms),
 PBR, the clearcoat (generalized-Schlick coat over the PBR substrate with
 Beer-Lambert tint) and emission, with textured albedo, roughness,
-metallic, coat thickness and emission and the normal-map frame.  Each
-kind present in the scene is evaluated over the whole ray batch and
-merged by ``mat_type`` masks.
+metallic, coat thickness and emission and the normal-map frame.  As torch
+ops, each kind present in the scene is evaluated over the whole ray batch
+and merged by ``mat_type`` masks; ``sample_material`` and
+``evaluate_material`` run instead, where ``uses_kernel`` says so (an
+untextured scene on a CUDA device, no gradient through the material
+table), one CUDA kernel each that runs every lane's own kind alone, bit
+for bit the torch ops (``ops.bsdf_kernels``).
 
 Conventions (as in the JAX package): directions live in the vertex
 shading-tangent frame (+Z = shading normal); f includes |cos theta_i|;
@@ -22,10 +26,12 @@ from typing import NamedTuple
 import torch
 
 from ..scene.types import (MAT_CLEARCOAT, MAT_EMISSIVE, MAT_GLASS,
-                           MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_PLASTIC)
+                           MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_PLASTIC,
+                           tensors_of)
 from ..spectrum import grid as sgrid
 from ..spectrum import rgb2spec
 from ..spectrum.sampled import SampledWavelengths, terminate_secondary
+from ..ops import bsdf_kernels
 from ..ops.table_grad import gather_rows
 from ..utils.math import M32
 from ..utils.vec import (Frame, S4, V2, V3, dot3, from_frame, make_frame,
@@ -639,14 +645,28 @@ def _clearcoat_eval(scene, it, wo_t, wi_t, wl, nm_frame=None):
 # ---------------------------------------------------------------------------
 
 OPAQUE_KINDS = (MAT_LAMBERT, MAT_METAL, MAT_PBR, MAT_CLEARCOAT)
-# the kinds ``sample_material`` samples, each of them over every lane
+# the kinds ``sample_material``'s torch ops sample, each over every lane
 SAMPLED_KINDS = (MAT_LAMBERT, MAT_METAL, MAT_GLASS, MAT_PLASTIC, MAT_PBR,
                  MAT_CLEARCOAT)
 
 
 def n_sampled_kinds(meta) -> int:
-    """The material kinds of the scene that ``sample_material`` samples."""
+    """The material kinds of the scene that ``sample_material``'s torch
+    ops sample."""
     return len(set(meta.present_mat_kinds) & set(SAMPLED_KINDS))
+
+
+def uses_kernel(scene, device) -> bool:
+    """Whether ``sample_material`` and ``evaluate_material`` run the
+    kernels of ``ops.bsdf_kernels`` for lanes on ``device``: a CUDA
+    device, no gradient to take through the material table (grad mode
+    off, or no column requires one: ``gather_rows``'s rule) and a scene
+    without textures (the kernels read the constant columns).  Otherwise
+    they run the torch ops."""
+    return (torch.device(device).type == "cuda" and not scene.textures
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad
+                             for t in tensors_of(scene.materials))))
 
 
 def _geo_sidedness(it, frame: Frame, wo_t: V3, wi_t: V3):
@@ -674,11 +694,25 @@ def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
 
     uc / uc2 / uc3: independent 1-D draws for up to three sequential lobe
     decisions; uv2: the 2-D lobe sample.  The integrators pass sampler
-    dims; a caller that omits uc2/uc3 gets bit hashes of uc."""
+    dims; a caller that omits uc2/uc3 gets bit hashes of uc.  One launch
+    of ``bsdf_sample_kernel`` where ``uses_kernel``, else torch ops."""
     if uc2 is None:
         uc2 = _hash_unit(uc, 0x9E3779B9)
     if uc3 is None:
         uc3 = _hash_unit(uc, 0x85EBCA6B)
+    if uses_kernel(scene, uc.device):
+        f, wi_t, pdf, sampled, specular, wl_pdf = bsdf_kernels.sample(
+            scene, meta, it, frame, wo_t, uc, uv2, wl, uc2, uc3)
+        return MaterialSample(f=f, wi_t=wi_t, pdf=pdf, sampled=sampled,
+                              specular=specular, wl=wl._replace(pdf=wl_pdf))
+    return _sample_material_ops(scene, meta, it, frame, wo_t, uc, uv2, wl,
+                                uc2, uc3)
+
+
+def _sample_material_ops(scene, meta, it, frame: Frame, wo_t: V3, uc,
+                         uv2: V2, wl, uc2, uc3) -> MaterialSample:
+    """``sample_material`` as torch ops: every kind present over every
+    lane, merged by mask."""
     kinds = set(meta.present_mat_kinds)
     r = uc.shape[0]
     mat_type = _mat_type(scene, it)
@@ -741,7 +775,18 @@ def sample_material(scene, meta, it, frame: Frame, wo_t: V3, uc, uv2: V2,
 
 
 def evaluate_material(scene, meta, it, frame: Frame, wo_t: V3, wi_t: V3, wl):
-    """Batched evaluate + pdf (used by NEE).  Returns (f S4, pdf (R,))."""
+    """Batched evaluate + pdf (used by NEE).  Returns (f S4, pdf (R,)):
+    one launch of ``bsdf_eval_kernel`` where ``uses_kernel``, else torch
+    ops."""
+    if uses_kernel(scene, wo_t.x.device):
+        return bsdf_kernels.evaluate(scene, meta, it, frame, wo_t, wi_t, wl)
+    return _evaluate_material_ops(scene, meta, it, frame, wo_t, wi_t, wl)
+
+
+def _evaluate_material_ops(scene, meta, it, frame: Frame, wo_t: V3,
+                           wi_t: V3, wl):
+    """``evaluate_material`` as torch ops: every kind present over every
+    lane, merged by mask."""
     kinds = set(meta.present_mat_kinds)
     mat_type = _mat_type(scene, it)
     nm_frame = _normal_map_frame(scene, it)

@@ -54,7 +54,7 @@ import torch
 
 from .. import telemetry
 from ..device import resolve_device
-from ..ops import cuda_trace, trace
+from ..ops import bsdf_kernels, cuda_trace, trace
 from ..scene.types import LIGHT_ENV, check_ported, tensors_of
 from ..spectrum import grid as sgrid
 from ..spectrum import sampled as swl
@@ -100,7 +100,8 @@ class RenderStats(NamedTuple):
     n_closest: int   # of n_rays, the closest-hit (camera, continuation)
     n_shadow: int    # of n_rays, the NEE shadow rays (any hit)
     # lanes whose material sample the step uses, and the lanes the
-    # material kinds' samples ran over (kinds x tile lanes x steps)
+    # material sampling ran over: tile lanes x steps on the material
+    # kernel, kinds x tile lanes x steps on the torch ops
     n_shaded: int = 0
     bsdf_lanes: int = 0
     # with an environment light (0 without): traced rays that escaped to
@@ -739,13 +740,15 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
     Span ``wavefront.film``, with the call's rays (``n_closest``,
     ``n_shadow``), steps and the lanes its traversal launches covered
     (``closest_lanes``, ``any_hit_lanes``), the lanes shaded by a BSDF
-    material against the lanes the kinds' samples ran over (``n_shaded``,
-    ``bsdf_lanes``) and, with an environment light, the escapes to it and
-    the NEE lanes sent to it against the lanes its lookups ran over
-    (``n_escape``, ``n_env_nee``, ``env_lanes``); a ``wavefront.tile`` span
-    for each tile."""
+    material against the lanes the material sampling ran over
+    (``n_shaded``, ``bsdf_lanes``: the sample kernel's lanes, or the torch
+    ops' kinds x tile lanes x steps) and, with an environment light, the
+    escapes to it and the NEE lanes sent to it against the lanes its
+    lookups ran over (``n_escape``, ``n_env_nee``, ``env_lanes``); a
+    ``wavefront.tile`` span for each tile."""
     with telemetry.span("wavefront.film") as film_span:
         lanes0 = cuda_trace.lanes_by_kind()
+        bsdf0 = cuda_trace.LANES[bsdf_kernels.SAMPLE_NAME]
         dev = scene.device
         spp_end = cfg.spp if spp_end is None else spp_end
         tile, n_px, pixel_xy, ai = _tiles(cfg, pixels, accum_init, dev)
@@ -781,7 +784,10 @@ def _wavefront_film(scene, meta, camera, cfg, spp_start, spp_end,
         accum = torch.cat(outs, 0)[:n_px]
         # the one host read of the call
         counts = dict(zip(names, torch.stack(sums).tolist()))
-        counts["bsdf_lanes"] = bsdf_mod.n_sampled_kinds(meta) * tile * n_steps
+        # the sample kernel's lanes where it ran, else the torch ops' kinds
+        counts["bsdf_lanes"] = (
+            cuda_trace.LANES[bsdf_kernels.SAMPLE_NAME] - bsdf0
+            or bsdf_mod.n_sampled_kinds(meta) * tile * n_steps)
         if meta.has_env:
             counts["env_lanes"] = tile * n_steps
         lanes = cuda_trace.lanes_by_kind()
